@@ -1,17 +1,19 @@
 #!/usr/bin/env python
 """Headline benchmark: wall-time to 1e-8 relative residual on a 1M-dof
-2-D Poisson system (BASELINE.md north star), krypy_tpu on TPU vs
-SciPy-CPU.
+2-D Poisson system (BASELINE.md north star), krypy_tpu on the
+accelerator vs SciPy-CPU.
 
 Prints ONE JSON line:
-    {"metric": ..., "value": seconds, "unit": "s", "vs_baseline": speedup}
+    {"metric": ..., "value": seconds, "unit": "s", "vs_baseline": speedup,
+     "device": {"platform", "kind", "count"}, ...}
 
-Method (TPU): mixed-precision iterative refinement -- float32 inner CG
+Method (device): mixed-precision iterative refinement -- float32 inner CG
 preconditioned with a geometric multigrid V-cycle (mesh-independent ~8
-iterations, all fused stencil work), one compiled while_loop per inner
-solve; the residual is recomputed in float64 between refinements until the
-float64 relative residual is <= 1e-8.  Bulk flops in f32 on the VPU,
-accuracy restored by f64 outer correction.
+iterations, all fused stencil work), the whole refinement one compiled
+while_loop; the residual is recomputed in float64 between refinements
+until the float64 relative residual is <= 1e-8.  Bulk traffic in f32,
+accuracy restored by f64 outer correction.  A run that finds no GPU
+exits non-zero.
 
 Baselines (CPU), BOTH reported in the JSON line:
 
@@ -41,24 +43,10 @@ import jax
 import jax.numpy as jnp
 
 
-# lane-padded inner lane (round 5): embed the 2^k-1 grid in a
-# (nx, pad128(nx)) buffer whose zero pad column doubles as the Dirichlet
-# ghost; the f32 operator and multigrid smoother/residual then run as
-# fused Pallas affine-stencil kernels on lane-ALIGNED rows instead of
-# the misaligned jnp chains (measured 39 GB/s at 8191^2,
-# benchmarks/RESULTS_r5.md).  BENCH_PAD=1 opts in.  MEASURED on the
-# driver path (1M dof, same session): PAD=1 0.0559 s vs PAD=0 0.0561 s
-# -- a wash, because the ~56 ms solve is dispatch/latency-bound (~25 ms
-# constant transport overhead, CLAUDE.md) rather than HBM-bound at this
-# size; the padded lane pays at the 67M-dof north star (1.9x,
-# benchmarks/RESULTS_r5.md).  Kept opt-in: equal speed, simpler default.
-PAD = os.environ.get("BENCH_PAD", "0") == "1"
-
-
 def build_problem(nx):
-    """Returns (lap, b64, N).  The jnp stencil serves the f64 outer
-    residual (its matvec dtype follows the input); the f32 inner lane
-    uses the lane-padded Pallas layout (see PAD above)."""
+    """Returns (lap, b64, N).  The stencil's matvec dtype follows its
+    input, so one operator serves the f32 inner solve and the f64 outer
+    residual."""
     from krypy_tpu import ops
 
     lap = ops.poisson_2d(nx)
@@ -67,7 +55,8 @@ def build_problem(nx):
     return lap, b64, N
 
 
-def tpu_solve(lap, b64, nx, tol=1e-8, inner_tol=1e-4, inner_maxiter=12):
+def device_solve(lap, b64, nx, tol=1e-8, inner_tol=1e-4,
+                 inner_maxiter=12):
     """Mixed-precision multigrid-CG via functional.refine_to; returns
     (x64, rel_res, wall_seconds, inner_iterations).
 
@@ -78,48 +67,30 @@ def tpu_solve(lap, b64, nx, tol=1e-8, inner_tol=1e-4, inner_maxiter=12):
     orders of magnitude."""
     from krypy_tpu import functional as F, ops
 
-    impl = "pallas" if PAD else "jnp"
-    lap32 = ops.poisson_2d(nx, pad_cols=PAD, impl=impl) if PAD else lap
     Mmg = ops.multigrid_poisson_preconditioner(
-        nx, coarsest=31, coarse_sweeps=60, pad_cols=PAD, impl=impl
+        nx, coarsest=31, coarse_sweeps=60
     )
 
     @jax.jit
     def inner_solve(r32):
-        if PAD:
-            r32 = ops.pad_grid_vec(r32, nx, nx)
-        res = F.cg(
-            lap32, r32, M=Mmg, tol=inner_tol, maxiter=inner_maxiter,
+        return F.cg(
+            lap, r32, M=Mmg, tol=inner_tol, maxiter=inner_maxiter,
             stagnation_window=4,
         )
-        if PAD:
-            res = res._replace(x=ops.unpad_grid_vec(res.x, nx, nx))
-        return res
-
-    # warm up the inner compile (refine_to warms the whole compiled
-    # refinement loop itself; a production deployment compiles once and
-    # solves many)
-    w = inner_solve(b64.astype(jnp.float32))
-    w.x.block_until_ready()
 
     def timed_solve(bb):
-        # compiled=True runs the WHOLE refinement as one while_loop:
-        # one dispatch + one fetch instead of ~2 round trips per cycle
-        # (~26 ms each through this transport)
+        # compiled=True runs the WHOLE refinement as one while_loop
+        # (one dispatch + one fetch); its first call warms the compile
         result, info = F.refine_to(lap, bb, inner_solve, tol=tol,
                                    compiled=True)
         rel = float(jnp.nanmin(result.resnorms))
         return result.x, rel, info["wall_s"], info["inner_iters"]
 
-    # best of 3; vary the rhs per run (identical repeated requests can
-    # be served from a transport cache), scaling is residual-invariant.
-    # ALL three walls are reported (wall_s_all in the JSON): the ~25 ms
-    # constant transport jitter on a ~50 ms measurement makes a single
-    # reading ambiguous by up to 2x (the r03->r04 0.0504 -> 0.0624 s
-    # "regression" was exactly this), so the spread IS the error bar.
-    runs = [timed_solve(b64 * (1.0 + 1e-9 * i)) for i in range(3)]
+    # best of 3; ALL three walls are reported (wall_s_all in the JSON)
+    # so the spread is visible
+    runs = [timed_solve(b64) for _ in range(3)]
     best = min(runs, key=lambda t: t[2])
-    return best + ([round(r[2], 4) for r in runs],)
+    return best + ([r[2] for r in runs],)
 
 
 def scipy_baseline(nx, tol=1e-8, budget_iters=400):
@@ -232,64 +203,69 @@ def scipy_same_algorithm(nx, tol=1e-8):
 
 
 def main():
+    from krypy_tpu.config import use_compile_cache
+
+    use_compile_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"no GPU: JAX found {dev.platform!r} devices")
     # 1023 = 2^10 - 1: exact multigrid nesting; N = 1,046,529 (~1M dof)
     nx = int(os.environ.get("BENCH_NX", "1023"))
     tol = 1e-8
 
     lap, b64, N = build_problem(nx)
-    x, rel, wall_tpu, inner_iters, wall_all = tpu_solve(
+    x, rel, wall, inner_iters, wall_all = device_solve(
         lap, b64, nx, tol=tol
     )
+    if not rel <= tol:
+        raise SystemExit(f"headline solve stopped at relres {rel:.3e}")
 
     scipy_wall, scipy_iters, extrapolated, scipy_rel = scipy_baseline(
         nx, tol=tol
     )
     sa_wall, sa_iters, sa_rel = scipy_same_algorithm(nx, tol=tol)
 
-    # second headline block (BASELINE metric "MGS GFLOP/s, GMRES 1M
-    # dof"): slope-timed GMRES orthogonalization cost + roofline
-    # fraction at this size, captured machine-readably every round
-    # (VERDICT r4 #6).  BENCH_ORTHO=0 skips it (e.g. CPU smoke runs).
+    # second headline block: GMRES orthogonalization cost per scheme at
+    # this size (BENCH_ORTHO=0 skips it)
     ortho_block = None
     if os.environ.get("BENCH_ORTHO", "1") != "0":
-        try:
-            sys.path.insert(
-                0, os.path.join(os.path.dirname(__file__), "benchmarks")
-            )
-            from ortho_bench import measure_ortho
+        sys.path.insert(
+            0, os.path.join(os.path.dirname(__file__), "benchmarks")
+        )
+        from ortho_bench import copy_rate, solve_leg
 
-            ortho_block = measure_ortho(
-                N, 40, ("cgs2", "cgs2_fused", "cgs2_1r"), reps=3
-            )
-            ortho_block["best_scheme"] = min(
-                (o for o in ortho_block),
-                key=lambda o: ortho_block[o]["wall_s"],
-            )
-        except Exception as exc:  # noqa -- the headline must still print
-            ortho_block = {"error": repr(exc)[:200]}
+        schemes = ("cgs2", "cgs2_1r", "cgs2_fused")
+        ortho_block = solve_leg(N, 40, schemes, copy_rate(),
+                                verbose=False)
+        ortho_block["best_scheme"] = min(
+            schemes, key=lambda o: ortho_block[o]["wall_s"]
+        )
 
-    ok = rel <= tol
     print(
         json.dumps(
             {
                 "metric": f"poisson2d_{N}dof_time_to_relres_1e-8",
-                "value": round(wall_tpu, 4),
+                "value": wall,
                 "unit": "s",
-                "vs_baseline": round(scipy_wall / wall_tpu, 2),
-                "vs_scipy_best": round(scipy_wall / wall_tpu, 2),
+                "vs_baseline": scipy_wall / wall,
+                "vs_scipy_best": scipy_wall / wall,
                 "extrapolated": bool(extrapolated),
-                "vs_scipy_same_algorithm": round(sa_wall / wall_tpu, 2),
+                "vs_scipy_same_algorithm": sa_wall / wall,
                 "wall_s_all": wall_all,
+                "relres": rel,
+                "inner_iters": inner_iters,
                 "ortho": ortho_block,
+                "device": {"platform": dev.platform,
+                           "kind": dev.device_kind,
+                           "count": len(jax.devices())},
             }
         )
     )
     print(
-        f"# tpu: {wall_tpu:.3f}s rel={rel:.2e} inner_iters={inner_iters} "
-        f"converged={ok} | scipy-cpu jacobi: {scipy_wall:.3f}s "
-        f"iters={scipy_iters} extrapolated={extrapolated} | "
-        f"scipy-cpu same-alg mg-cg: {sa_wall:.3f}s iters={sa_iters} "
-        f"rel={sa_rel:.2e} | devices={jax.devices()}",
+        f"# device: {wall:.4f}s rel={rel:.2e} inner_iters={inner_iters} "
+        f"| scipy-cpu jacobi: {scipy_wall:.3f}s iters={scipy_iters} "
+        f"extrapolated={extrapolated} | scipy-cpu same-alg mg-cg: "
+        f"{sa_wall:.3f}s iters={sa_iters} rel={sa_rel:.2e}",
         file=sys.stderr,
     )
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Block solvers vs sequential single-rhs solves at 1M dof on the real
-TPU: k systems share every operator HBM pass and the small dense work
-runs as MXU GEMMs.
+"""Block solvers vs sequential single-rhs solves at 1M dof on the
+device: k systems share every operator memory pass and the small dense
+work runs as GEMMs.
 
 Fixed Krylov budget per column (tol=0), so the wall ratio is the
 per-column throughput gain of the block formulation.
@@ -10,6 +10,8 @@ per-column throughput gain of the block formulation.
 import json
 import sys
 import time
+
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
 
 import jax
 import jax.numpy as jnp
@@ -41,20 +43,19 @@ def main():
     )
 
     # warm both compiles
-    float(jnp.sum(single(cols[0])))
-    float(jnp.sum(block(B)))
+    jax.block_until_ready(single(cols[0]))
+    jax.block_until_ready(block(B))
 
     walls_seq, walls_blk = [], []
     for rep in range(3):
         scale = 1.0 + 1e-3 * (rep + 1)
         t0 = time.perf_counter()
-        acc = 0.0
         for j in range(k):
-            acc += float(jnp.sum(single(cols[j] * scale)))
+            jax.block_until_ready(single(cols[j] * scale))
         walls_seq.append(time.perf_counter() - t0)
 
         t0 = time.perf_counter()
-        float(jnp.sum(block(B * scale)))
+        jax.block_until_ready(block(B * scale))
         walls_blk.append(time.perf_counter() - t0)
 
     seq, blk = min(walls_seq), min(walls_blk)

@@ -10,6 +10,8 @@ flops + the update; counted as 4 * 2 * (m+1) * N flops/iter)."""
 import json
 import time
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import jax
 import jax.numpy as jnp
 
@@ -29,16 +31,13 @@ def main():
     r = solve(b)
     r.x.block_until_ready()
 
-    # vary the rhs per run (identical requests can be served from a
-    # runtime cache) and sync by fetching a scalar: block_until_ready is
-    # not a reliable barrier through remote-execution transports
-    float(jnp.sum(r.x))
+    jax.block_until_ready(r.x)
     best = float("inf")
     for i in range(5):
         bi = b * (1.0 + 1e-6 * (i + 1))
         t0 = time.perf_counter()
         r = solve(bi)
-        float(jnp.sum(r.x))
+        jax.block_until_ready(r.x)
         best = min(best, time.perf_counter() - t0)
 
     iters = int(r.niter)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""LSQR/LSMR throughput at ~1M dof on the real TPU.
+"""LSQR/LSMR throughput at ~1M dof on the device.
 
 The probe is a damped least-squares problem on the 2-D Poisson operator
 (`min ||b - A x||^2 + damp^2 ||x||^2` -- A is square but the damping
@@ -12,6 +12,8 @@ per-iteration cost on the same operator (one matvec + 2 reductions).
 import json
 import sys
 import time
+
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
 
 import jax
 import jax.numpy as jnp
@@ -31,13 +33,13 @@ def main():
         b = jnp.ones(N, jnp.float32)
         r = solve(b)
         niter = int(r.niter)
-        float(jnp.sum(r.x))
+        jax.block_until_ready(r.x)
         walls = []
         for rep in range(4):
             bb = jnp.full(N, 1.0 + 1e-3 * (rep + 1), jnp.float32)
             t0 = time.perf_counter()
             rr = solve(bb)
-            float(jnp.sum(rr.x))
+            jax.block_until_ready(rr.x)
             walls.append(time.perf_counter() - t0)
         wall = min(walls)
         out = {

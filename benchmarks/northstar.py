@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """North-star benchmark (BASELINE.json:5): deflated restarted GMRES on a
 >=10M-dof sparse operator to 1e-8 TRUE (float64) relative residual,
-krypy_tpu on TPU vs SciPy on CPU.
+krypy_tpu on the accelerator vs SciPy on CPU.
 
 Problem: 2-D convection-diffusion (nonsymmetric, upwind) on a 4095^2 grid
 (N = 16,769,025 ~ 16.8M dof; override with NORTHSTAR_NX).
@@ -9,13 +9,15 @@ Problem: 2-D convection-diffusion (nonsymmetric, upwind) on a 4095^2 grid
 Both sides run the SAME algorithm so the comparison is hardware+framework,
 not algorithm-vs-algorithm: restarted GMRES, left-preconditioned with a
 geometric multigrid V-cycle of the diffusive part, deflated with Ritz
-vectors harvested from the first cycle (TPU side; scipy.sparse.linalg.gmres
+vectors harvested from the first cycle (device side; scipy.sparse.linalg.gmres
 has no deflation hook -- it gets the same multigrid and restart length).
-The TPU side runs float32 inner cycles + float64 iterative refinement;
+The device side runs float32 inner cycles + float64 iterative refinement;
 SciPy runs float64 end to end.  Both must reach ||b - A x|| / ||b|| <= 1e-8
 in float64 -- measured, not extrapolated.
 
-Prints one JSON line per side plus a summary line.
+Prints one JSON line per side plus a summary line.  Run:
+``python benchmarks/northstar.py`` (``NORTHSTAR_DEVICE_ONLY=1`` skips
+the SciPy side).
 """
 
 import json
@@ -24,15 +26,16 @@ import time
 
 os.environ.setdefault("KRYPY_TPU_X64", "1")
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
 TOL = 1e-8
-# restart length: 25 fits 16.8M dof comfortably; at 67M dof (8191^2,
-# NORTHSTAR_NX=8191) the 26-row f32 basis alone is 7.0 GB, so the probe
-# overrides this down to fit the 16 GB v5e HBM
+# restart length (at 67M dof, NORTHSTAR_NX=8191, the 26-row f32 basis
+# alone is 7.0 GB)
 RESTART = int(os.environ.get("NORTHSTAR_RESTART", "25"))
 # orthogonalization scheme of the inner GMRES cycles (round 5: the
 # one-reduce scheme composes with the bf16 basis, so the memory lever
@@ -51,15 +54,6 @@ ORTHO = os.environ.get("NORTHSTAR_ORTHO", "cgs2")
 BASIS = os.environ.get("NORTHSTAR_BASIS", "f32")
 # preconditioner side: "left" (default; deflation-exact) or "right"
 PRECOND = os.environ.get("NORTHSTAR_PRECOND", "left")
-# lane-padded grid layout (round 5): embed the 8191^2 grid in
-# (8191, 8192) with a zero pad column (== the Dirichlet ghost), which
-# lane-aligns every row -- the f32 operator and the multigrid smoother/
-# residual then run as fused Pallas affine-stencil kernels at the HBM
-# roofline instead of the lane-misaligned jnp chains (measured 39 GB/s,
-# benchmarks/RESULTS_r5.md), and the padded N is 128-divisible, which
-# unlocks the fused Pallas orthogonalization kernels.  The f64
-# refinement stays unpadded (no Mosaic f64).
-PAD = os.environ.get("NORTHSTAR_PAD", "0") == "1"
 # deflation width (default 0): MEASURED FINDING -- the multigrid
 # preconditioner clusters the spectrum so Ritz deflation has nothing to
 # remove, and at >=10M dof the float32 residual noise feeds through the
@@ -77,11 +71,13 @@ WIND = (1.0, 0.5)
 EPS = 1.0
 
 
-# ---------------------------------------------------------------- TPU side
-def tpu_side(nx):
-    from krypy_tpu import functional as F, ops
+# ------------------------------------------------------------- device side
+def build_operators(nx):
+    """The north star's operators: the h^2-equilibrated float32 inner
+    operator, the float64 outer operator and the multigrid left
+    preconditioner (with the 1/h^2 scale)."""
+    from krypy_tpu import ops
 
-    N = nx * nx
     h = 1.0 / (nx + 1)
     h2 = h * h
     # float32 inner system is h^2-EQUILIBRATED: the raw stencil's 1/h^2
@@ -92,36 +88,31 @@ def tpu_side(nx):
     # would round first and scale the damage.
     cd32 = ops.convection_diffusion_2d(
         nx, wind=(WIND[0] * h2, WIND[1] * h2), eps=EPS * h2,
-        pad_cols=PAD, impl="pallas" if PAD else "jnp",
     )
     cd64 = ops.convection_diffusion_2d(nx, wind=WIND, eps=EPS)
     # multigrid of the (unscaled-spectrum) diffusive part as the LEFT
     # preconditioner (deflation's oblique correction is exact for left
     # deflation only); restart control below uses explicit float32 true
     # residuals, so the left-preconditioned monitored norm cannot
-    # overstate progress.  NOTE: the Pallas stencil is NOT used here --
-    # multigrid grids are 2^k-1, always lane-unaligned, where the jnp
-    # lowering measured 4.5x faster (docs/DESIGN.md section 8).
-    # the 1/h2 equilibration scale rides the preconditioner itself:
-    # on the padded Pallas lane it folds into the final post-smoothing
-    # kernel (zero extra HBM passes -- the external `* (1/h2)` wrapper
-    # used before cost a full 268 MB read+write per application at 67M)
+    # overstate progress.  The 1/h2 equilibration scale rides the
+    # preconditioner itself.
     Ml = ops.multigrid_poisson_preconditioner(
-        nx, coarsest=31, coarse_sweeps=60,
-        pad_cols=PAD, impl="pallas" if PAD else "jnp",
-        scale=1.0 / h2,
+        nx, coarsest=31, coarse_sweeps=60, scale=1.0 / h2,
     )
-    b = jnp.ones(N, jnp.float32)
+    return cd32, cd64, Ml, jnp.float32(h2)
 
-    h2_f32 = jnp.float32(h2)
+
+def device_side(nx):
+    from krypy_tpu import functional as F
+
+    N = nx * nx
+    cd32, cd64, Ml, h2_f32 = build_operators(nx)
+    b = jnp.ones(N, jnp.float32)
 
     if N_DEFL == 0:
         # default path: fully-compiled solve (see below); no Ritz
         # harvest needed
-        return _tpu_compiled(nx, N, cd32, cd64, Ml, b, h2_f32)
-    if PAD:
-        raise SystemExit("NORTHSTAR_PAD composes with the compiled "
-                         "(NORTHSTAR_DEFL=0) path only")
+        return compiled_solve(nx)[1]
 
     # cycle 1: plain GMRES stopping at the inner tolerance, so the Ritz
     # harvest uses only the CLEAN leading Krylov directions (running to
@@ -187,16 +178,15 @@ def tpu_side(nx):
         return res._replace(x=best_x)
 
     # warm-up compiles (production = compile once, solve many)
-    w = inner_solve(b, max_restarts=1)
-    float(jnp.sum(w.x))
+    inner_solve(b, max_restarts=1).x.block_until_ready()
     matvecs["n"] = 0
 
     result, info = F.refine_to(cd64, b, inner_solve, tol=TOL)
     rel = float(jnp.nanmin(result.resnorms))
     return {
-        "side": "tpu",
+        "side": "device",
         "N": N,
-        "wall_s": round(info["wall_s"], 3),
+        "wall_s": info["wall_s"],
         "rel_res64": rel,
         "converged": bool(result.converged),
         "matvecs": matvecs["n"],
@@ -206,28 +196,31 @@ def tpu_side(nx):
     }
 
 
-def _tpu_compiled(nx, N, cd32, cd64, Ml, b, h2_f32):
+def compiled_solve(nx, ortho=None, restart=None):
     """Default (undeflated) path: the inner restarted-GMRES driver is
     itself a traced while_loop, and refine_to(compiled=True) runs the
     ENTIRE solve -- f32 restarted GMRES cycles, f32 true-residual
-    restart control, f64 refinement -- as ONE compiled program: a single
-    device dispatch instead of ~2 transport round trips (~26 ms each)
-    per restart and per refinement cycle."""
+    restart control, f64 refinement -- as ONE compiled program.
+
+    :return: ``(x64, record)`` -- the float64 solution on the device and
+      the JSON record of the run.
+    """
     from jax import lax
 
-    from krypy_tpu import functional as F, ops
+    from krypy_tpu import functional as F
     from krypy_tpu.functional.common import MAXITER, SolveResult
+
+    ortho = ORTHO if ortho is None else ortho
+    restart = RESTART if restart is None else int(restart)
+    N = nx * nx
+    cd32, cd64, Ml, h2_f32 = build_operators(nx)
+    b = jnp.ones(N, jnp.float64)
 
     def inner_solve(r32):
         """Traced analog of the host restart loop: up to 3 GMRES(m)
         cycles on the equilibrated system, best iterate by TRUE f32
-        residual, early stop on non-improvement/convergence.  With
-        NORTHSTAR_PAD the cycles run entirely in the lane-padded layout
-        (pad/unpad at this boundary only; the f64 outer loop is
-        unpadded)."""
+        residual, early stop on non-improvement/convergence."""
         rs = r32 * h2_f32
-        if PAD:
-            rs = ops.pad_grid_vec(rs, nx, nx)
         rs_norm = jnp.maximum(jnp.linalg.norm(rs), 1e-30)
         xz = jnp.zeros_like(rs)
 
@@ -239,8 +232,8 @@ def _tpu_compiled(nx, N, cd32, cd64, Ml, b, h2_f32):
             i, x, bx, best, done, nit = c
             pk = {"Mr": Ml} if PRECOND == "right" else {"Ml": Ml}
             res = F.gmres(
-                cd32, rs, x0=x, tol=INNER_TOL, maxiter=RESTART,
-                ortho=ORTHO,
+                cd32, rs, x0=x, tol=INNER_TOL, maxiter=restart,
+                ortho=ortho,
                 basis_dtype=jnp.bfloat16 if BASIS == "bf16" else None,
                 **pk,
             )
@@ -263,8 +256,6 @@ def _tpu_compiled(nx, N, cd32, cd64, Ml, b, h2_f32):
                 jnp.asarray(False), jnp.asarray(0),
             ),
         )
-        if PAD:
-            bx = ops.unpad_grid_vec(bx, nx, nx)
         return SolveResult(
             x=bx, resnorms=jnp.zeros(1), niter=nit,
             status=jnp.asarray(MAXITER),
@@ -274,21 +265,22 @@ def _tpu_compiled(nx, N, cd32, cd64, Ml, b, h2_f32):
         cd64, b, inner_solve, tol=TOL, compiled=True
     )
     rel = float(jnp.nanmin(result.resnorms))
-    return {
-        "side": "tpu",
+    return result.x, {
+        "side": "device",
         "N": N,
-        "wall_s": round(info["wall_s"], 3),
+        "wall_s": info["wall_s"],
+        "warm_s": info["warm_s"],
         "rel_res64": rel,
         "converged": bool(result.converged),
         "matvecs": int(info["inner_iters"]) + info["cycles"] + 1,
+        "inner_iters": int(info["inner_iters"]),
         "n_deflation": 0,
         "refine_cycles": info["cycles"],
         "compiled": True,
-        "restart": RESTART,
-        "ortho": ORTHO,
+        "restart": restart,
+        "ortho": ortho,
         "basis": BASIS,
         "precond": PRECOND,
-        "pad": PAD,
         "device": str(jax.devices()[0]),
     }
 
@@ -403,24 +395,23 @@ def main():
     if (nx + 1) & nx != 0:
         raise SystemExit("NORTHSTAR_NX must be 2^k - 1 (multigrid nesting)")
 
-    tpu = tpu_side(nx)
-    print(json.dumps(tpu), flush=True)
-    if os.environ.get("NORTHSTAR_TPU_ONLY"):
+    dev = device_side(nx)
+    print(json.dumps(dev), flush=True)
+    if os.environ.get("NORTHSTAR_DEVICE_ONLY"):
         # scale probes beyond the SciPy side's patience (e.g. 8191^2 =
-        # 67M dof, where same-algorithm SciPy extrapolates to ~10 min):
-        # report the TPU side alone
+        # 67M dof): report the device side alone
         return
     cpu = scipy_side(nx)
     print(json.dumps(cpu), flush=True)
     print(
         json.dumps(
             {
-                "metric": f"northstar_convdiff_{tpu['N']}dof_"
+                "metric": f"northstar_convdiff_{dev['N']}dof_"
                           "restarted_gmres_mg_refined_to_1e-8",
-                "value": tpu["wall_s"],
+                "value": dev["wall_s"],
                 "unit": "s",
-                "vs_baseline": round(cpu["wall_s"] / tpu["wall_s"], 2),
-                "both_converged": tpu["converged"] and cpu["converged"],
+                "vs_baseline": cpu["wall_s"] / dev["wall_s"],
+                "both_converged": dev["converged"] and cpu["converged"],
             }
         ),
         flush=True,

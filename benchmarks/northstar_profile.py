@@ -3,15 +3,15 @@
 at NORTHSTAR_NX (default 8191, 67M dof): where does the wall time go?
 
 Slope-times, per component, K chained applications inside ONE jit at
-two K values (per-op = dt/dK, cancelling the ~25 ms transport constant;
-CLAUDE.md / stream_bench.py), best-of-3 with varied inputs:
+two K values (per-op = dt/dK, which cancels the per-call dispatch and
+launch cost), best-of-3, each call ended by ``block_until_ready``:
 
   * cd32 matvec (the f32 equilibrated convection-diffusion stencil)
   * multigrid V-cycle (the left preconditioner)
   * cd64 matvec + f64 norm (one refinement residual)
   * one full inner GMRES(RESTART) cycle (end-to-end slope over cycles)
 
-Run: PYTHONPATH=/root/repo python benchmarks/northstar_profile.py
+Run: python benchmarks/northstar_profile.py
 """
 
 import json
@@ -20,21 +20,20 @@ import time
 
 os.environ.setdefault("KRYPY_TPU_X64", "1")
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import jax
 import jax.numpy as jnp
 from jax import lax
 
 NX = int(os.environ.get("NORTHSTAR_NX", "8191"))
 RESTART = int(os.environ.get("NORTHSTAR_RESTART", "12"))
-# NORTHSTAR_PAD=1 profiles the grid-padded lane (padded Pallas stencil
-# + padded multigrid) instead of the lane-misaligned jnp operators
-PAD = os.environ.get("NORTHSTAR_PAD", "0") == "1"
 WIND = (1.0, 0.5)
 EPS = 1.0
 
 
 def _sync(x):
-    return float(jnp.sum(x))
+    return jax.block_until_ready(x)
 
 
 def slope(make_fn, pool, k1, k2, reps=3):
@@ -58,34 +57,23 @@ def main():
     N = nx * nx
     h = 1.0 / (nx + 1)
     h2 = h * h
-    impl = "pallas" if PAD else "jnp"
     cd32 = ops.convection_diffusion_2d(
         nx, wind=(WIND[0] * h2, WIND[1] * h2), eps=EPS * h2,
-        pad_cols=PAD, impl=impl,
     )
     cd64 = ops.convection_diffusion_2d(nx, wind=WIND, eps=EPS)
     Ml = ops.multigrid_poisson_preconditioner(
-        nx, coarsest=31, coarse_sweeps=60, pad_cols=PAD, impl=impl,
-        scale=1.0 / h2,
+        nx, coarsest=31, coarse_sweeps=60, scale=1.0 / h2,
     )
 
-    N32 = cd32.shape[0] if PAD else N
+    N32 = N
     key = jax.random.PRNGKey(0)
     pool32 = [jax.random.normal(k, (N32,), jnp.float32)
               for k in jax.random.split(key, 3)]
-    if PAD:
-        # keep the pad-zero invariant in the probe inputs
-        pool32 = [
-            ops.pad_grid_vec(
-                ops.unpad_grid_vec(p, nx, nx), nx, nx
-            )
-            for p in pool32
-        ]
     pool64 = [jax.random.normal(k, (N,), jnp.float64)
               for k in jax.random.split(key, 3)]
 
-    out = {"N": N, "nx": nx, "restart": RESTART, "pad": PAD,
-           "per_op_s": {}}
+    out = {"N": N, "nx": nx, "restart": RESTART, "per_op_s": {},
+           "device": jax.devices()[0].device_kind}
 
     def chain(op):
         def make(K):

@@ -1,41 +1,48 @@
 #!/usr/bin/env python
-"""One-reduce solver family benchmark (round 4).
+"""One-reduce solver family benchmark.
 
-Slope-times the classic vs one-reduce (`variant="1r"` /
-`ortho="cgs2_1r"`) short-recurrence solvers at 1M dof f32 on the real
-chip: two fixed-iteration solves at maxiter K1 < K2, per-iteration =
-(t(K2) - t(K1)) / (K2 - K1), best-of-N with varied right-hand sides
-(the transport serves identical repeated requests from a cache and adds
-~25 ms of constant dispatch cost -- see docs/DESIGN.md section 8).
+Times the classic vs one-reduce (`variant="1r"` / `ortho="cgs2_1r"`)
+solvers at 1M dof f32 on one device: two fixed-iteration solves at
+maxiter K1 < K2, per-iteration = (t(K2) - t(K1)) / (K2 - K1), each
+solve timed best-of-N with ``block_until_ready``.
 
-Single-chip expectation: roughly PARITY.  The one-reduce schemes buy
-their win in mesh sync points (HLO-pinned at 1 all-reduce/iteration in
-tests/test_collectives.py), which a single chip does not pay; this
-benchmark exists to demonstrate the rearrangements are not a single-chip
-regression.  Run: python benchmarks/onereduce_bench.py [--size NX]
+The one-reduce schemes buy their win in mesh sync points (HLO-pinned at
+1 all-reduce/iteration in tests/test_collectives.py), which a single
+device does not pay.  What one device shows is their extra local
+traffic: the per-iteration delta over the classic variant, divided by
+the time of one vector sweep at the copy rate measured in the same run,
+is the ``extra_sweeps`` figure that
+``krypy_tpu.functional.policy.ONE_REDUCE_EXTRA_SWEEPS`` prices.
+Run: python benchmarks/onereduce_bench.py [--size NX] [--only ...]
 """
 
 import argparse
 import json
 import time
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+from ortho_bench import copy_rate
+
 import jax
 import jax.numpy as jnp
 
+#: (classic case, one-reduce case) per policy entry
+PAIRS = {
+    "cg": ("cg_classic", "cg_1r"),
+    "minres": ("minres_classic", "minres_1r"),
+    "qmr": ("qmr_classic", "qmr_1r"),
+    "deflated_cg": ("deflcg4_classic", "deflcg4_1r"),
+    "idrs": ("idrs4_classic", "idrs4_1r"),
+}
 
-def _sync(x):
-    return float(jnp.real(jnp.sum(x)))
 
-
-def time_solve(make, b_pool, reps=3):
-    """Best-of-reps wall for a jitted solve, varied inputs, scalar-fetch
-    synced."""
-    make(b_pool[0])  # compile + warm
+def time_solve(make, b, reps=3):
+    """Best-of-reps wall for a jitted solve, ended by block_until_ready."""
+    jax.block_until_ready(make(b))  # compile + warm
     best = float("inf")
-    for i in range(reps):
-        b = b_pool[(i + 1) % len(b_pool)]
+    for _ in range(reps):
         t0 = time.perf_counter()
-        _sync(make(b))
+        jax.block_until_ready(make(b))
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -53,16 +60,11 @@ def main():
     args = ap.parse_args()
 
     from krypy_tpu import functional as F, ops
-
     nx = args.size
     N = nx * nx
     lap = ops.poisson_2d(nx)
     Mj = ops.jacobi_preconditioner(lap)
-    key = jax.random.PRNGKey(0)
-    b_pool = [
-        jax.random.normal(k, (N,), jnp.float32)
-        for k in jax.random.split(key, 4)
-    ]
+    b = jax.random.normal(jax.random.PRNGKey(0), (N,), jnp.float32)
 
     def jit_solve(fn):
         j = jax.jit(fn)
@@ -152,14 +154,26 @@ def main():
         cases = {n: f for n, f in cases.items()
                  if any(k in n for k in keys)}
 
-    out = {"N": N, "k1": args.k1, "k2": args.k2, "per_iter_us": {}}
+    dev = jax.devices()[0]
+    rate = copy_rate()
+    sweep_us = N * 4 / rate * 1e6
+    out = {"N": N, "k1": args.k1, "k2": args.k2, "device": dev.device_kind,
+           "copy_GBps": rate / 1e9, "sweep_us": sweep_us,
+           "per_iter_us": {}, "extra_sweeps": {}}
     for name, mk in cases.items():
-        t1 = time_solve(mk(args.k1), b_pool)
-        t2 = time_solve(mk(args.k2), b_pool)
+        t1 = time_solve(mk(args.k1), b)
+        t2 = time_solve(mk(args.k2), b)
         per = (t2 - t1) / (args.k2 - args.k1) * 1e6
-        out["per_iter_us"][name] = round(per, 1)
+        out["per_iter_us"][name] = per
         print(f"  {name}: {per:.1f} us/iter  "
-              f"(t{args.k1}={t1*1e3:.1f} ms, t{args.k2}={t2*1e3:.1f} ms)")
+              f"(t{args.k1}={t1*1e3:.1f} ms, t{args.k2}={t2*1e3:.1f} ms)",
+              flush=True)
+    per_iter = out["per_iter_us"]
+    for entry, (classic, one) in PAIRS.items():
+        if classic in per_iter and one in per_iter:
+            out["extra_sweeps"][entry] = (
+                per_iter[one] - per_iter[classic]
+            ) / sweep_us
     print(json.dumps(out))
 
 

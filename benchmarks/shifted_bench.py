@@ -12,6 +12,8 @@ import json
 import sys
 import time
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import jax
 import jax.numpy as jnp
 
@@ -38,7 +40,7 @@ def cg_main(argv):
     )
 
     def sync(x):
-        float(jnp.sum(jnp.abs(x)))
+        jax.block_until_ready(x)
 
     b = jnp.ones(N, jnp.float32)
     sync(multi(b).X)
@@ -93,7 +95,7 @@ def restarted_main(argv):
     b = jnp.ones(N, jnp.float32)
 
     def sync(x):
-        float(jnp.sum(jnp.abs(x)))
+        jax.block_until_ready(x)
 
     # fair sequential baseline: ONE compiled whole-restart driver with
     # the shift as a traced argument (a fresh lambda per shift would
@@ -168,7 +170,7 @@ def main():
     )
 
     def sync(x):
-        float(jnp.sum(jnp.abs(x)))
+        jax.block_until_ready(x)
 
     b = jnp.ones(N, jnp.float32)
     sync(multi(b).X)

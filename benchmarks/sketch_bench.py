@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Sketched GMRES vs classic GMRES at 1M dof (TPU).
+"""Sketched GMRES vs classic GMRES at 1M dof on the device.
 
 Two measurements:
 
 1. PER-ITERATION cost at m=40, slope-timed over the iteration count
    (t(maxiter=40) - t(maxiter=20)) / 20 inside single dispatches with
-   tol=0, so the ~25 ms transport constant cancels (benchmarks/
-   stream_bench.py measured the intercept; RESULTS_r3.md).
+   tol=0, so the constant per-call cost cancels.
    sGMRES moves O(k N) per iteration against classic GMRES's O(m N)
    basis sweep, so the gap should widen with m.
 2. END-TO-END: Jacobi-preconditioned convection-diffusion solve to
@@ -16,12 +15,13 @@ Two measurements:
    with the subspace dimension -- measured true_rel 1.43 before the
    restarted driver existed).  Reports wall + total iterations.
 
-Timing per CLAUDE.md: vary inputs across repeats, sync by fetching a
-scalar, best-of-N.
+Timing: best-of-N, each call ended by ``block_until_ready``.
 """
 
 import json
 import time
+
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +35,7 @@ def _time_best(fn, b, n=4):
     for i in range(n):
         bi = b * (1.0 + 1e-6 * (i + 1))
         t0 = time.perf_counter()
-        float(jnp.sum(fn(bi)))
+        jax.block_until_ready(fn(bi))
         best = min(best, time.perf_counter() - t0)
     return best
 
@@ -85,7 +85,7 @@ def main():
             bi = b2 * (1.0 + 1e-6 * (i + 1))
             t0 = time.perf_counter()
             r = fn(bi)
-            float(jnp.sum(r.x))
+            jax.block_until_ready(r.x)
             best = min(best, time.perf_counter() - t0)
         rel = float(jnp.linalg.norm(b2 - cd(r.x)) / jnp.linalg.norm(b2))
         e2e[name] = {

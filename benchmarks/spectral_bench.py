@@ -1,15 +1,17 @@
 #!/usr/bin/env python
-"""Spectral-surface throughput at 1M dof on the real TPU: eigsh,
+"""Spectral-surface throughput at 1M dof on the device: eigsh,
 expm_multiply, inv_sqrt_multiply.
 
-Each line reports best-of-3 wall for one compiled solve (scalar-fetch
-synced).  These are the solvers with no reference analog; the bench
+Each line reports best-of-3 wall for one compiled solve (ended by
+``block_until_ready``).  These are the solvers with no reference analog; the bench
 pins that the surface is perf-real, not demo-ware.
 """
 
 import json
 import sys
 import time
+
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
 
 import numpy
 import jax
@@ -27,14 +29,12 @@ def main():
 
     def timed(fn, label, out_of):
         out = fn(1.0)
-        float(jnp.sum(jnp.abs(out_of(out))))
+        jax.block_until_ready(out_of(out))
         walls = []
         for rep in range(3):
             t0 = time.perf_counter()
-            # rep inputs must differ from the warmup input: identical
-            # repeated requests may be served from a transport cache
             out = fn(1.0 + 1e-3 * (rep + 1))
-            float(jnp.sum(jnp.abs(out_of(out))))
+            jax.block_until_ready(out_of(out))
             walls.append(time.perf_counter() - t0)
         print(
             json.dumps({"task": label, "wall_s": round(min(walls), 4)}),

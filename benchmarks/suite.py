@@ -20,18 +20,16 @@ import argparse
 import json
 import time
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 
 def _sync(out):
-    """Synchronize by fetching a scalar: block_until_ready is not a
-    reliable barrier through remote-execution transports."""
-    leaves = [l for l in jax.tree_util.tree_leaves(out) if hasattr(l, "sum")]
-    for leaf in leaves[:1]:
-        float(jnp.real(leaf.sum()))
-    return out
+    """Wait until the device has finished ``out``."""
+    return jax.block_until_ready(out)
 
 
 def _timed(fn, *args, repeats=3):
@@ -161,7 +159,7 @@ def config4_shifted_laplacian_deflated(nx):
     b = jnp.ones(N, jnp.float32)
 
     # first pass: plain GMRES collecting Ritz data (ortho='auto' engages
-    # the fused Pallas CGS2 kernel on TPU)
+    # the fused Pallas CGS2 kernel on the GPU)
     res0, internals = F.gmres(
         sl, b, tol=1e-4, maxiter=250, return_internal=True, ortho="auto"
     )

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Unstructured-operator preconditioning benchmark (VERDICT r3 item 6).
+"""Unstructured-operator preconditioning benchmark.
 
 The grid gallery's strong preconditioners (multigrid/DST/SSOR) assume
 the 5-point stencil family; this leg measures the OFF-GRID story: an
 irregular-graph Laplacian (BCOO matvec) solved by CG and by the
 BASELINE config-3 solver stack (right-preconditioned GMRES), with
 point Jacobi vs dense block-Jacobi (`ops.block_jacobi_preconditioner`
--- one batched (nb, bs, bs) MXU matmul per application, zero
+-- one batched (nb, bs, bs) matrix-unit matmul per application, zero
 collectives).
 
 Run: python benchmarks/unstructured_bench.py [--size N] [--bs B]
@@ -16,12 +16,15 @@ import argparse
 import json
 import time
 
+import _setup  # noqa: F401  (repo root on sys.path, compile cache)
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
 def _sync(x):
-    return float(jnp.real(jnp.sum(x)))
+    return jax.block_until_ready(x)
 
 
 def graph_laplacian(N, band=32, deg=10, seed=11):
@@ -88,8 +91,7 @@ def main():
             _sync(r.x)  # compile+run
             best = float("inf")
             for rep in range(3):
-                bb = b * (1.0 + 1e-6 * rep)
-                _sync(bb)
+                bb = _sync(b * (1.0 + 1e-6 * rep))
                 t0 = time.perf_counter()
                 r = cg(bb)
                 _sync(r.x)

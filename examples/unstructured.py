@@ -1,9 +1,9 @@
-"""Off-grid workflow: a scipy sparse matrix through the TPU-native
+"""Off-grid workflow: a scipy sparse matrix through the accelerator-native
 unstructured lane, end to end.
 
 1. reorder for bandwidth (reverse Cuthill-McKee), so the matrix fits the
    gather-free DIA format;
-2. `ops.dia_from_scipy`: the TPU-native sparse matvec (one dense vector
+2. `ops.dia_from_scipy`: the accelerator-native sparse matvec (one dense vector
    per occupied diagonal, roll-based, zero gathers -- 51x faster than
    BCOO on-chip at 65k dof / 1.2M nnz);
 3. preconditioning off the grid: `block_jacobi_preconditioner` (SPD, for
@@ -55,7 +55,7 @@ def main():
           f"{np.unique(roo.col - roo.row).size} -> "
           f"{np.unique(coo.col - coo.row).size}")
 
-    # --- 2. the TPU-native sparse matvec ----------------------------------
+    # --- 2. the accelerator-native sparse matvec ----------------------------------
     Amv = ops.dia_from_scipy(Ar)
     x = jnp.asarray(np.random.default_rng(0).standard_normal(N))
     exact = np.abs(np.asarray(Amv(x)) - Ar @ np.asarray(x)).max()

@@ -1,19 +1,19 @@
-"""krypy_tpu -- a TPU-native Krylov subspace solver framework.
+"""krypy_tpu -- an accelerator-native Krylov subspace solver framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability set of KryPy
 (https://github.com/andrenarchy/krypy, reference mounted at
 /root/reference): CG, MINRES and GMRES with user-defined inner products and
 two-sided preconditioning, deflation with oblique projections and
 Ritz/harmonic-Ritz extraction, and recycling for sequences of linear
-systems -- redesigned for TPU hardware:
+systems -- redesigned for compiled accelerator execution:
 
 * solver hot loops compile once into ``jax.lax.while_loop`` kernels with
   on-device convergence checks (:mod:`krypy_tpu.functional`);
 * the N-dimensional data path (vectors, Krylov bases, matvecs, inner
   products) shards over a ``jax.sharding.Mesh`` so inner products become
-  local partial contractions + ICI all-reduces (:mod:`krypy_tpu.parallel`);
-* blocked classical Gram-Schmidt orthogonalization and fused operator
-  kernels run as Pallas TPU kernels (:mod:`krypy_tpu.kernels`);
+  local partial contractions + all-reduces (:mod:`krypy_tpu.parallel`);
+* the fused two-pass Gram-Schmidt step runs as a Pallas kernel on the
+  GPU (:mod:`krypy_tpu.kernels`); everything else is XLA-compiled jnp;
 * the reference's eager, object-style API (``linsys``, ``deflation``,
   ``recycling``, ``utils``) is preserved for drop-in compatibility.
 """

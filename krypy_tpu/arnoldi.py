@@ -5,7 +5,7 @@ orthogonalization schemes of the reference (krypy/utils.py:854-1081):
 modified Gram-Schmidt (``'mgs'``), doubly-reorthogonalized MGS (``'dmgs'``),
 the Lanczos three-term recurrence (``'lanczos'``) and Householder
 (``'house'``), plus classical Gram-Schmidt variants (``'cgs'``, ``'cgs2'``)
-that batch the orthogonalization into two GEMMs -- the TPU-friendly scheme
+that batch the orthogonalization into two GEMMs -- the accelerator-friendly scheme
 with dmgs-class stability used by the jitted solver cores in
 :mod:`krypy_tpu.functional`.
 
@@ -256,7 +256,7 @@ class Arnoldi:
         for _ in range(self.reorthos + 1):
             if self.ortho in ("cgs", "cgs2"):
                 # classical (batched) Gram-Schmidt: one fused block inner
-                # product and one block update -- two GEMMs on TPU.
+                # product and one block update -- two GEMMs on the device.
                 # start == 0 here (lanczos never takes this branch), so
                 # the cached stacks serve both reortho passes directly.
                 Vk = self.V

@@ -3,7 +3,7 @@
 The reference library (krypy, /root/reference) inherits float64 semantics from
 NumPy.  JAX defaults to float32, so we opt into 64-bit mode at import time
 unless the user disables it via the ``KRYPY_TPU_X64`` environment variable
-(set it to ``0`` for the fast float32 TPU path, e.g. in benchmarks).
+(set it to ``0`` for a float32-only process, e.g. in benchmarks).
 
 Note that enabling x64 does *not* force computations into float64: arrays
 created with an explicit ``dtype=jnp.float32`` stay in float32 all the way
@@ -20,22 +20,42 @@ _X64 = os.environ.get("KRYPY_TPU_X64", "1") != "0"
 if _X64:
     jax.config.update("jax_enable_x64", True)
 
-# On TPU, f32 matmuls default to fast bf16-multiply MXU passes
-# (precision=DEFAULT), which silently injects ~1e-3..1e-4 relative noise
-# into the library's core contractions -- inner products, Gram-Schmidt
-# sweeps, Gram matrices.  Measured impact: the 1M-dof shift-invert
-# eigensolve's leading eigenvalue carried 6.5e-4 relative error and
-# failed its 5e-4 backward-error certification; with full f32 precision
-# the error is ~1e-6 (benchmarks/RESULTS_r3.md).  A numerics library
-# must not trade digits silently, so full f32 accumulation is the
-# import-time default.  The cost is ~nil on the solver hot paths: the
-# orthogonalization contractions are HBM-bound (~521 of the ~690 GB/s
-# measured ceiling), far below the MXU balance point even at 6-pass f32.
-# Opt out (e.g. for bf16-dominated workloads) with
-# ``KRYPY_TPU_PRECISION=default``.
+# f32 matmuls may run at reduced precision by default (TF32 on the GPU),
+# which silently injects ~1e-3..1e-4 relative noise into the library's
+# core contractions -- inner products, Gram-Schmidt sweeps, Gram
+# matrices.  A numerics library must not trade digits silently, so full
+# f32 accumulation is the import-time default.  The solver hot paths are
+# matrix-vector contractions, bound by memory bandwidth far below the
+# tensor-core balance point, so the cost is small.  Opt out (e.g. for
+# bf16-dominated workloads) with ``KRYPY_TPU_PRECISION=default``.
 _PRECISION = os.environ.get("KRYPY_TPU_PRECISION", "highest")
 if _PRECISION != "default":
     jax.config.update("jax_default_matmul_precision", _PRECISION)
+
+
+#: directory of the persistent compile cache when the environment names
+#: none: fixed, because the path is part of the cache key
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache",
+)
+
+
+def use_compile_cache():
+    """Turn on JAX's persistent compilation cache for a script.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses it and
+    nothing is set here.  Otherwise the cache goes to the fixed
+    directory :data:`REPO_CACHE_DIR` (``<repo>/.jax_cache``).  Scripts
+    call this at start-up; importing the library never does.
+
+    :return: the cache directory in use.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    return REPO_CACHE_DIR
 
 
 def x64_enabled() -> bool:
@@ -59,7 +79,7 @@ def default_complex():
 
 #: Relative breakdown threshold used for invariance detection in the
 #: Arnoldi/Lanczos iterations (reference: krypy/utils.py:1035-1039 uses 1e-14
-#: in float64).  Parameterized by dtype so the float32 TPU path uses a
+#: in float64).  Parameterized by dtype so the float32 path uses a
 #: consistent threshold.
 def invariance_threshold(dtype) -> float:
     import numpy as np

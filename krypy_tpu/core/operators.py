@@ -248,7 +248,7 @@ class MatrixLinearOperator(LinearOperator):
 
 
 class DiagonalLinearOperator(LinearOperator):
-    """Operator ``diag(d)`` -- O(N) storage, elementwise (VPU) application."""
+    """Operator ``diag(d)`` -- O(N) storage, elementwise application."""
 
     def __init__(self, d):
         d = jnp.asarray(d)
@@ -267,7 +267,7 @@ class DiagonalLinearOperator(LinearOperator):
 class FunctionLinearOperator(LinearOperator):
     """Operator defined by pure functions acting on 1-D vectors.
 
-    Convenience for matrix-free TPU operators: ``matvec`` maps ``(n,)`` to
+    Convenience for matrix-free device operators: ``matvec`` maps ``(n,)`` to
     ``(m,)`` and is vmapped over block columns automatically.
     """
 

@@ -1,6 +1,6 @@
 """Inner products and norms, Euclidean and B-weighted.
 
-Reference semantics: krypy/utils.py:146-238.  On a sharded TPU mesh these
+Reference semantics: krypy/utils.py:146-238.  On a sharded device mesh these
 contractions are where the collectives live: ``X^* Y`` with X, Y sharded over
 the row (N) axis compiles to a local partial matmul followed by an XLA
 all-reduce over the mesh axis -- GSPMD inserts the ``psum`` automatically when

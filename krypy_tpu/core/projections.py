@@ -6,7 +6,7 @@ the projection :math:`P_{\\mathcal{X},\\mathcal{Y}^\\perp}` is stored as
 orthonormal bases V (of X) and W (of Y) plus a small QR factorization of
 :math:`\\langle W, V\\rangle`.  Iterated application ("twice is enough") is
 the default.  All N-dim work is jnp matmuls, so a sharded basis turns each
-application into two GEMMs + an all-reduce on a TPU mesh.
+application into two GEMMs + an all-reduce on a device mesh.
 """
 
 import jax.numpy as jnp

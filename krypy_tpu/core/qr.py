@@ -2,7 +2,7 @@
 (reference: krypy/utils.py:680-707).
 
 The Euclidean case uses the fused device QR.  The B-inner-product case runs
-iterated modified Gram-Schmidt; for the blocked TPU-fast variant used inside
+iterated modified Gram-Schmidt; for the blocked fast variant used inside
 jitted solver cores see :mod:`krypy_tpu.kernels.orthogonalize`.
 """
 

@@ -1,6 +1,6 @@
 """Wall-clock timing instrumentation (reference: krypy/utils.py:1289-1362).
 
-On TPU, per-op host timers cannot see inside a fused/jitted region, so the
+On an accelerator, per-op host timers cannot see inside a fused/jitted region, so the
 timed quantities here are whole dispatches (with ``block_until_ready`` at the
 caller, see :class:`~krypy_tpu.core.operators.TimedLinearOperator`).  The
 ``get``/``get_ops`` interface is unchanged: the recycling evaluators combine

@@ -1,4 +1,4 @@
-"""Compile-once TPU solver cores.
+"""Compile-once solver cores.
 
 This is the production lane of krypy_tpu: each solver is a pure function
 whose whole iteration -- matvec, orthogonalization, Givens QR update,
@@ -11,7 +11,7 @@ and non-convergence are reported as status codes in the returned
 All N-dimensional state shards transparently over a ``jax.sharding.Mesh``:
 pass sharded operands (or wrap the call in ``jit`` with sharding
 annotations) and GSPMD turns every inner product into a local partial
-contraction plus an ICI all-reduce.  See :mod:`krypy_tpu.parallel`.
+contraction plus an all-reduce.  See :mod:`krypy_tpu.parallel`.
 """
 
 from .common import (

@@ -1,6 +1,6 @@
 """Jitted Arnoldi/Lanczos relation builder.
 
-The TPU-lane counterpart of :func:`krypy_tpu.utils.arnoldi` (reference:
+The functional-lane counterpart of :func:`krypy_tpu.utils.arnoldi` (reference:
 krypy/utils.py:854-1081): builds :math:`A V_n = V_{n+1}\\underline{H}_n`
 in one compiled ``while_loop`` with fixed-shape buffers, returning the
 basis, the Hessenberg matrix, the achieved dimension and the invariance
@@ -97,7 +97,7 @@ def arnoldi(A, v, *, maxiter=None, ortho="cgs2", M=None, ip=None):
 
     :param A: matvec / matrix / LinearOperator.
     :param v: initial vector ``(N,)``.
-    :param ortho: ``'cgs'``/``'cgs2'`` (batched, TPU-fast),
+    :param ortho: ``'cgs'``/``'cgs2'`` (batched, fast),
       ``'mgs'``/``'dmgs'`` (sequential fidelity), ``'lanczos'``.
     :param M: optional SPD preconditioner; a dual basis P with ``V = M P``
       is maintained (reference: krypy/utils.py:874-878).

@@ -18,7 +18,7 @@ last iterate.
 
 Reference baseline: krypy has no transpose-free nonsymmetric
 short-recurrence solver (its nonsymmetric answer is GMRES,
-krypy/linsys.py:877-1018); TPU-native surface.
+krypy/linsys.py:877-1018); accelerator-native surface.
 """
 
 from typing import NamedTuple

@@ -1,9 +1,9 @@
 r"""Block solvers: one solve for multiple right-hand sides.
 
 Not a reference capability (krypy solves a single rhs per call, its
-``(N, 1)`` vectors notwithstanding) -- this is TPU-native surface: every
+``(N, 1)`` vectors notwithstanding) -- this is accelerator-native surface: every
 operation of the block methods is an ``(N, k)`` GEMM or a ``(k, k)``
-factorization, exactly the shapes the MXU wants, and the k systems share
+factorization, exactly the shapes the matrix units want, and the k systems share
 every matvec's HBM traffic.
 
 * :func:`block_cg` -- classical block CG (O'Leary 1980) for SPD systems,
@@ -263,7 +263,7 @@ def block_gmres(
       ``(maxiter+1, k)``, and ``niter`` counting block steps.
 
     Reference baseline: krypy has no block solver (its GMRES is
-    krypy/linsys.py:877-1018); TPU-native surface.
+    krypy/linsys.py:877-1018); accelerator-native surface.
     """
     B = jnp.asarray(B)
     if B.ndim != 2:

@@ -19,7 +19,7 @@ stagnation guard instead of claiming false convergence.  Use
 
 Reference baseline: krypy has no Chebyshev solver (its a-priori
 machinery stops at *bounds* on CG/MINRES convergence,
-krypy/utils.py:1847-2003); this solver is TPU-native surface.
+krypy/utils.py:1847-2003); this solver is accelerator-native surface.
 """
 
 from typing import NamedTuple

@@ -1,11 +1,11 @@
 """Shared infrastructure of the jitted solver cores.
 
-Conventions (differ deliberately from the eager lane, for TPU efficiency):
+Conventions (differ deliberately from the eager lane, for accelerator efficiency):
 
 * vectors are 1-D ``(N,)`` device arrays;
 * Krylov bases are stored ROW-major, shape ``(m+1, N)``: a block inner
   product against the basis is then a single ``(m+1, N) x (N,)``
-  contraction that XLA maps onto the MXU and, for a sharded N axis,
+  contraction that XLA maps onto the matrix units and, for a sharded N axis,
   lowers to partial-dot + all-reduce over the mesh;
 * all problem operators are pure matvec callables ``(N,) -> (N,)``;
 * statuses replace exceptions (reference: ConvergenceError semantics,

@@ -7,26 +7,26 @@ the residual direction, and continue -- the compressed projected matrix
 is an arrowhead that the generic full-reorthogonalization step extends
 back to (numerically) Hermitian form automatically.
 
-TPU-native design decisions:
+accelerator-native design decisions:
 
 * the WHOLE solve -- every Lanczos sweep, every restart compression,
   every small eigendecomposition -- is one ``lax.while_loop``; a solve
   is a single XLA dispatch;
 * full CGS2 reorthogonalization per step: two fused ``(m+1, N) x (N,)``
-  contractions on the MXU instead of the classic selective/partial
+  contractions on the matrix units instead of the classic selective/partial
   schemes, whose data-dependent branching cannot be traced (and whose
   savings target memory-bound CPUs, not batched GEMM machines);
 * the per-cycle (m, m) Hermitian eigendecomposition runs ON DEVICE with
   ``jnp.linalg.eigh`` (unlike the non-Hermitian cases, which go to host
   LAPACK by design -- docs/DESIGN.md section 7): it is needed INSIDE the
-  compiled loop, and Jacobi-style eigh maps to the TPU fine at these
+  compiled loop, and eigh runs on the device fine at these
   (replicated, small) sizes;
 * the N axis of the basis shards over a mesh like every other
   functional core (the contractions become partial-dot + all-reduce).
 
 The reference exposes Ritz extraction from existing solves
 (krypy/utils.py:1380-1465) but no standalone eigensolver; this module is
-TPU-native extra surface with the same status-code contract as the
+accelerator-native extra surface with the same status-code contract as the
 linear solvers.
 """
 
@@ -302,7 +302,7 @@ def eigsh(
       into one compiled program).  The inner solves must be accurate
       (rel. residual well below ``tol``), or the Lanczos recurrence on
       the inexact operator loses Hermitian structure; this is the
-      standard inexact-shift-invert caveat, not a TPU artifact.  With
+      standard inexact-shift-invert caveat, not a device artifact.  With
       ``sigma``, ``which`` is ignored (nearest-``sigma`` selection) and
       the k pairs are VERIFIED against ``A`` itself: the returned
       ``resnorms[-1]``/``status`` reflect true BACKWARD errors
@@ -332,7 +332,7 @@ def eigsh(
       cluster multiplicity captures the whole cluster per cycle -- e.g.
       the square Laplacian's degenerate pairs need ``block_size=2``.
       Each block step runs one global CGS2 projection (two ``(m+bs, N)
-      x (N, bs)`` MXU contractions -- the same HBM sweeps as ``bs``
+      x (N, bs)`` contractions -- the same HBM sweeps as ``bs``
       single steps but with ``bs``-fold wider, better-shaped GEMM
       operands) followed by a two-pass intra-block MGS whose round-off
       rows deflate to zero (cluster exhausted).  Combinable with

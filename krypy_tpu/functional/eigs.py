@@ -7,7 +7,8 @@ the l wanted Schur vectors, and continue.
 
 Split of labor (the lane's standing convention, docs/DESIGN.md
 section 7: small dense NON-Hermitian spectral work runs on host
-LAPACK by design -- TPU has no native Schur/eig lowering, and the
+LAPACK by design -- the accelerator backends have no Schur/eig
+lowering, and the
 (m, m) problem is microscopic):
 
 * the Arnoldi sweeps -- all N-sized work -- run ON DEVICE as one
@@ -29,7 +30,7 @@ complex anyway.
 
 The reference exposes only Ritz extraction from existing solves
 (krypy/utils.py:1380-1465) and no standalone eigensolver; this module
-is TPU-native extra surface, oracle-tested against
+is accelerator-native extra surface, oracle-tested against
 ``scipy.sparse.linalg.eigs``.
 """
 

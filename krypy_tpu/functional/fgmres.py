@@ -7,7 +7,7 @@ the solution from Z, so :math:`M` may change every iteration -- in
 particular it may itself be an iterative solver (inner-outer Krylov).
 The cost is a second (m, N) buffer of HBM.
 
-TPU shape: identical to :mod:`krypy_tpu.functional.gmres` -- one
+Accelerator shape: identical to :mod:`krypy_tpu.functional.gmres` -- one
 ``lax.while_loop``, row-major fixed-shape bases, batched/paneled
 orthogonalization, matrix-accumulated Givens, on-device convergence
 test; the flexible preconditioner is any jittable callable (an inner
@@ -15,7 +15,7 @@ functional solver with a fixed iteration budget traces straight into the
 outer loop).
 
 Reference baseline: krypy has no flexible variant (its Mr must be a
-fixed linear operator, krypy/linsys.py:83-85); TPU-native surface.
+fixed linear operator, krypy/linsys.py:83-85); accelerator-native surface.
 """
 
 from typing import NamedTuple

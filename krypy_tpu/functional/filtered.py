@@ -19,7 +19,7 @@ eigensolver surface:
 * :func:`eigsh_window` (this module) -- INTERIOR pairs with nothing but
   ``degree`` applications of A per pair per iteration: the only option
   when :math:`A - \sigma I` is indefinite and hard to precondition,
-  and the natural TPU shape -- the filter is a ``lax.fori_loop`` of
+  and the natural accelerator shape -- the filter is a ``lax.fori_loop`` of
   fused block matvecs (three-term recurrence), everything else is
   ``(p, N)`` panel GEMMs, the whole solve one ``lax.while_loop``.
 
@@ -30,7 +30,7 @@ per OUTER iteration, so on a sharded mesh the all-reduce count per
 matvec is ~``3/degree`` instead of the 2-4 of Lanczos-type methods.
 
 The reference exposes no eigensolver at all (only Ritz extraction from
-existing solves, krypy/utils.py:1380-1465); this module is TPU-native
+existing solves, krypy/utils.py:1380-1465); this module is accelerator-native
 extra surface with the same status-code contract as the linear solvers.
 """
 
@@ -282,7 +282,7 @@ def _rademacher_rows(A, key, n_probes, N, dtype=None):
     """Real Rademacher probe rows in the operator's (real) dtype, or
     in ``dtype`` when given (callable operators cannot be probed and
     would otherwise default to float64 under x64 -- pass
-    ``dtype=jnp.float32`` for TPU work)."""
+    ``dtype=jnp.float32`` for float32 work)."""
     dt = _operator_dtype(A) if dtype is None else jnp.dtype(dtype)
     if dt is None:
         dt = jnp.zeros(0).dtype
@@ -319,7 +319,7 @@ def window_count(
       :func:`eigsh_window`.
     :param dtype: probe dtype; defaults to the operator's when it can
       be probed, else the x64-default float -- pass ``jnp.float32``
-      explicitly for callable operators on TPU.
+      explicitly for callable operators.
     :return: ``(count, stderr)`` Python floats.
     """
     lo, hi = float(window[0]), float(window[1])

@@ -8,8 +8,8 @@ functions like exp (matrix exponentials are the workhorse of
 exponential time integrators; scipy's analog is
 ``scipy.sparse.linalg.expm_multiply``).
 
-TPU-native design: the basis build is the same full-CGS2 Lanczos sweep
-as :func:`~krypy_tpu.functional.eigh.eigsh` (two fused MXU contractions
+accelerator-native design: the basis build is the same full-CGS2 Lanczos sweep
+as :func:`~krypy_tpu.functional.eigh.eigsh` (two fused contractions
 per step), :math:`f(T_m)` is evaluated on device via ``jnp.linalg.eigh``
 of the small replicated projection, and the whole computation -- sweep,
 eigendecomposition, assembly, and the standard a-posteriori error
@@ -82,7 +82,7 @@ def funm_krylov(A, b, f, *, maxdim=30, ortho="cgs2"):
     V = jnp.zeros((m + 1, N), dtype).at[0].set(bv * safe_div(1.0, beta))
     H = jnp.zeros((m + 1, m + 1), dtype)
 
-    # shared full-CGS2 Lanczos sweep (eigh.py): batched MXU
+    # shared full-CGS2 Lanczos sweep (eigh.py): batched
     # contractions, with the invariance guard -- normalizing a
     # round-off-sized residual would inject a garbage direction whose
     # Rayleigh quotient is unbounded (catastrophic under f=exp); it
@@ -144,7 +144,7 @@ def funm_krylov_arnoldi(A, b, f=None, *, maxdim=30, matfunc=None,
     evaluation of ``f`` on the tiny (m, m) Hessenberg runs on the HOST
     via Schur-Parlett (``scipy.linalg.funm``) -- DIAGONALIZATION of a
     non-normal H is unstable (the eigenvector basis can be arbitrarily
-    ill-conditioned), and TPU has no Schur lowering; the final assembly
+    ill-conditioned), and the device has no Schur lowering; the final assembly
     ``V_m^T (beta f(H) e_1)`` is a device GEMV.
 
     Early invariance is handled EXACTLY: the sweep deflates a
@@ -380,7 +380,7 @@ def slq_trace(
     :math:`z^T f(A) z \approx \|z\|^2 \sum_j |S_{1j}|^2 f(\theta_j)`
     from the ``maxdim``-step Lanczos eigendecomposition.
 
-    TPU-native mapping: ALL probes run simultaneously --
+    accelerator-native mapping: ALL probes run simultaneously --
     ``jax.vmap`` over the shared CGS2 sweep turns the per-probe matvecs
     into batched ``(n_probes, N)`` operator applications and the small
     eigensolves into one batched eigh; one dispatch for the whole

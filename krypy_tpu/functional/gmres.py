@@ -4,40 +4,38 @@ One ``lax.while_loop`` containing the full iteration: matvec, blocked
 orthogonalization, Givens QR update of the Hessenberg matrix, and the
 on-device convergence check.  The Krylov basis lives in a fixed
 ``(maxiter+1, N)`` row-major buffer so each orthogonalization sweep is one
-``(m+1, N) x (N,)`` MXU contraction (+ one for the update); on a sharded
-mesh the contraction lowers to partial-dot + ICI all-reduce.
+``(m+1, N) x (N,)`` contraction (+ one for the update); on a sharded
+mesh the contraction lowers to partial-dot + all-reduce.
 
 Orthogonalization schemes (``ortho=``):
 
 * ``'cgs2'`` (default): two passes of batched classical Gram-Schmidt --
-  two fused contractions per pass over the full (maxiter+1, N) buffer,
-  dmgs-class stability.
+  two contractions per pass over a bucketed row prefix of the
+  (maxiter+1, N) buffer (see ``bucket_heights``), dmgs-class stability.
 * ``'cgs'``: single-pass batched CGS.
 * ``'bmgs2'``/``'bmgs'``: two/one passes of BLOCKED MGS: the basis is
   swept in row panels and only panels holding active rows are read, so
   HBM traffic scales with the current Krylov dimension k instead of
   maxiter.  The fastest scheme for large maxiter; two passes are in the
   dmgs stability class.
-* ``'cgs2_pallas'``/``'cgs_pallas'``: cgs2/cgs with the fused Pallas
-  projection kernel (:mod:`krypy_tpu.kernels.orthogonalize`); Euclidean
-  inner product only.
-* ``'cgs2_fused'``: both CGS2 passes in 3 basis sweeps instead of 4
-  (prefix-sized reads) -- the fastest single-chip scheme at moderate
-  maxiter (732 us/iter at m=40 / 1M dof f32, slope-timed).  Under an
+* ``'cgs2_fused'``: both CGS2 passes in 3 sweeps of the bucketed row
+  prefix instead of ``'cgs2'``'s 4: the middle update+projection pair runs
+  as one Pallas kernel on the GPU's Triton route
+  (:func:`~krypy_tpu.kernels.orthogonalize.cgs2_fused`).  Under an
   ACTIVE MESH the same scheme runs per shard via ``shard_map``
   (:func:`~krypy_tpu.kernels.orthogonalize.cgs2_fused_sharded`): 3
-  local HBM sweeps + 2 coefficient psums + the norm = 3 sync
-  points/iter, one basis sweep of traffic less than ``cgs2`` (pinned in
-  tests/test_collectives.py).  Euclidean ip, no ``M`` (with distinct
-  project/update bases the fusion saves no traffic: project reads V,
-  update reads P -- four slab-reads either way), real dtypes on real
-  TPU (Mosaic has no complex lowering); ineligible mesh cases fall back
-  to the batched-jnp buckets under GSPMD.
+  local sweeps + 2 coefficient psums + the norm = 3 sync points/iter,
+  one basis sweep of traffic less than ``cgs2`` (pinned in
+  tests/test_collectives.py).  Eligible: float32 system, Euclidean ip,
+  no ``M`` (with distinct project/update bases the fusion saves no
+  traffic), no ``basis_dtype``, N divisible by the mesh size, and a GPU
+  backend unless ``interpret=True`` is passed by name.  An ineligible
+  call raises.
 * ``'cgs2_1r'``: one-reduce lagged CGS-2 (DCGS-2, Świrydowicz et al.
   NLAA 2021 / Bielich et al. 2022): the second Gram-Schmidt pass of the
   previous candidate, its norm (Pythagorean identity) and the first
   pass of the new direction ride ONE fused ``(m+2, N) x (N, 2)``
-  contraction, so a sharded iteration costs exactly ONE ICI all-reduce
+  contraction, so a sharded iteration costs exactly ONE all-reduce
   (vs 5 for ``cgs2``: 2x2 projection passes + the norm) -- pinned on
   compiled HLO in tests/test_collectives.py.  Same two-pass (dmgs-class)
   stability as ``cgs2``; the Hessenberg column and the Givens/residual
@@ -53,8 +51,8 @@ Orthogonalization schemes (``ortho=``):
   (DESIGN section 8) compares the local basis sweep the sharded fused
   kernel saves against its two extra all-reduces: bandwidth-bound
   shards get ``'cgs2_fused'`` (sharded), latency-bound shards get
-  ``'cgs2_1r'``.  Single-chip: ``'cgs2_fused'`` for plain f32
-  Euclidean solves on a TPU backend, ``'cgs2'`` otherwise.
+  ``'cgs2_1r'``.  Single device: ``'cgs2_fused'`` for plain f32
+  Euclidean solves on a GPU backend, ``'cgs2'`` otherwise.
 * ``'mgs'``/``'dmgs'``: sequential (doubly) modified Gram-Schmidt via an
   inner ``fori_loop`` -- the reference's schemes (krypy/utils.py:1012-1029)
   for fidelity; latency-bound on accelerators.
@@ -99,22 +97,61 @@ from .common import (
 _FUSED_SHARDED_EXTRA_SYNCS = 2  # 3 sync points vs cgs2_1r's 1
 
 
-def _fused_sharded_ok(N, n_dev, rows, itemsize):
-    """Static eligibility of the sharded fused Pallas path: an even
-    column split over the mesh and a local tile the kernel can actually
-    use.  The tiling feasibility check must match the kernel's own
-    (:func:`~krypy_tpu.kernels.orthogonalize._vmem_block` at the
-    WORST-CASE row count, i.e. the full basis height): the VMEM budget
-    shrinks the admissible tile as rows grow, so a shard that divides
-    4096 can still be untileable at the tallest bucket -- checking
-    ``_divide_block`` alone would route such solves into a traced
-    ValueError instead of the jnp fallback (ADVICE r4)."""
-    from ..kernels.orthogonalize import _vmem_block
-
+def _fused_ok(ip, M, basis_dtype, dtype, interpret):
+    """Static eligibility of ``ortho='cgs2_fused'`` apart from the mesh
+    split: Euclidean ip, no dual basis, no quantized basis, a float32
+    system, and a GPU backend unless the caller asked for the Pallas
+    interpreter by name."""
     return (
-        N % n_dev == 0
-        and _vmem_block(N // n_dev, rows, 4096, itemsize) is not None
+        ip is None
+        and M is None
+        and basis_dtype is None
+        and jnp.dtype(dtype) == jnp.dtype(jnp.float32)
+        and (interpret or jax.default_backend() == "gpu")
     )
+
+
+def resolve_auto_ortho(N, m, dtype, *, ip=None, M=None, basis_dtype=None,
+                       interpret=False):
+    """The scheme ``ortho='auto'`` runs for a size-N solve of height m.
+
+    On a multi-device mesh the price model picks between the one-reduce
+    scheme and the sharded fused kernel; on one device the fused kernel
+    where eligible, batched CGS2 otherwise.
+    """
+    from ..parallel import active_mesh, active_mesh_size
+
+    scalar_ip = ip is not None and not (
+        hasattr(ip, "ndim") or (hasattr(ip, "dot") and hasattr(ip, "shape"))
+    )
+    mesh_n = active_mesh_size()
+    fused_ok = _fused_ok(ip, M, basis_dtype, dtype, interpret)
+    if mesh_n > 1 and not scalar_ip and not (
+        M is not None and (ip is not None or basis_dtype is not None)
+    ):
+        # two mesh regimes (DESIGN section 8): latency-bound shards want
+        # the ONE-sync-point scheme; bandwidth-bound shards want the
+        # 3-sweep sharded fused kernel (2 extra syncs, one basis sweep
+        # saved per iteration).  The fused branch additionally requires
+        # a PHYSICAL mesh (shard_map needs device placement): under an
+        # abstract sharding context only the mesh-safe one-reduce scheme
+        # qualifies.
+        from . import policy
+
+        if (
+            fused_ok
+            and active_mesh() is not None
+            and N % mesh_n == 0
+            and policy.fused_sharded_wins(
+                m + 1, N // mesh_n, jnp.dtype(dtype).itemsize,
+                extra_syncs=_FUSED_SHARDED_EXTRA_SYNCS,
+            )
+        ):
+            return "cgs2_fused"
+        return "cgs2_1r"
+    if mesh_n <= 1 and fused_ok:
+        return "cgs2_fused"
+    return "cgs2"
 
 
 class _GmresState(NamedTuple):
@@ -187,6 +224,7 @@ def gmres(
     return_internal=False,
     basis_dtype=None,
     fused_deflation=None,
+    interpret=False,
 ):
     r"""Solve :math:`M M_l A M_r y = M M_l b`, :math:`x = M_r y` with
     preconditioned GMRES in one compiled while_loop.
@@ -215,6 +253,8 @@ def gmres(
       ``operator_with_capture``; ``projected_r0``/``correct_xk`` still
       apply.  Used by
       :func:`krypy_tpu.functional.deflation.deflated_gmres`.
+    :param interpret: run the ``ortho='cgs2_fused'`` kernel in the Pallas
+      interpreter (CPU tests, virtual meshes).  Never chosen implicitly.
     :param basis_dtype: storage dtype for the Krylov basis buffers
       (e.g. ``jnp.bfloat16``), independent of the computation dtype.
       Orthogonalization contractions then read the basis at the narrow
@@ -243,63 +283,10 @@ def gmres(
     Mr_mv = as_matvec(Mr)
     pair, rows = make_inner(ip)
     if ortho == "auto":
-        # fastest eligible scheme: on a multi-device mesh the solve is
-        # latency-bound on sync points, so the one-reduce scheme wins
-        # regardless of backend; single-chip, the fused Pallas CGS2
-        # kernel wins on TPU (732 vs 1319 us/iter at m=40 / 1M dof f32,
-        # slope-timed, benchmarks/ortho_bench.py) but supports only the
-        # Euclidean ip, no M dual basis, and f32 on a real TPU backend
-        # (Mosaic has no f64); everywhere else batched CGS2 is the
-        # right default.
-        from ..parallel import active_mesh, active_mesh_size
-
-        _sys_dt = jnp.dtype(system_dtype(bv, x0))
-        _scalar_ip = ip is not None and not (
-            hasattr(ip, "ndim") or (hasattr(ip, "dot") and hasattr(ip, "shape"))
+        ortho = resolve_auto_ortho(
+            N, m, jnp.dtype(system_dtype(bv, x0)), ip=ip, M=M,
+            basis_dtype=basis_dtype, interpret=interpret,
         )
-        _mesh_n = active_mesh_size()
-        if _mesh_n > 1 and not _scalar_ip and not (
-            M is not None and (ip is not None or basis_dtype is not None)
-        ):
-            # two mesh regimes (DESIGN section 8): latency-bound shards
-            # want the ONE-sync-point scheme; bandwidth-bound shards
-            # want the 3-sweep sharded fused kernel (2 extra syncs, one
-            # basis sweep of HBM traffic saved per iteration).  Pick by
-            # comparing the saved local sweep time against the extra
-            # round trips.  The fused branch additionally requires a
-            # PHYSICAL mesh (shard_map needs device placement): under an
-            # abstract sharding context the single-device pallas_call
-            # would replicate the GSPMD-sharded basis (ADVICE r4), so
-            # only the mesh-safe one-reduce scheme qualifies there.
-            from . import policy
-
-            if (
-                ip is None
-                and M is None
-                and basis_dtype is None
-                and not jnp.issubdtype(_sys_dt, jnp.complexfloating)
-                and active_mesh() is not None
-                and _fused_sharded_ok(
-                    N, _mesh_n, m + 1, _sys_dt.itemsize
-                )
-                and policy.fused_sharded_wins(
-                    m + 1, N // _mesh_n, _sys_dt.itemsize,
-                    extra_syncs=_FUSED_SHARDED_EXTRA_SYNCS,
-                )
-            ):
-                ortho = "cgs2_fused"
-            else:
-                ortho = "cgs2_1r"
-        elif (
-            ip is None
-            and M is None
-            and basis_dtype is None
-            and jax.default_backend() == "tpu"
-            and _sys_dt == jnp.dtype(jnp.float32)
-        ):
-            ortho = "cgs2_fused"
-        else:
-            ortho = "cgs2"
     one_reduce = ortho == "cgs2_1r"
     if one_reduce:
         if M is not None:
@@ -368,51 +355,34 @@ def gmres(
         "dmgs": 2,
         "bmgs": 1,
         "bmgs2": 2,
-        "cgs_pallas": 1,
-        "cgs2_pallas": 2,
         "cgs2_fused": 2,
         "cgs2_1r": 2,  # two GS passes per basis vector, fused+lagged
     }[ortho]
     sequential = ortho in ("mgs", "dmgs")
     paneled = ortho in ("bmgs", "bmgs2")
-    pallas = ortho in ("cgs_pallas", "cgs2_pallas")
     fused = ortho == "cgs2_fused"
     # Under an active mesh the fused scheme runs per shard via
-    # shard_map (3 local sweeps + 2 psums); a single-device pallas_call
-    # on a GSPMD-sharded basis would force replication.  When the mesh
-    # is active but the sharded kernel is ineligible (uneven split,
-    # complex dtype -- Mosaic has no complex lowering), the batched-jnp
-    # bucket fallback keeps the solve GSPMD-clean.
+    # shard_map (3 local sweeps + 2 psums); a single-device kernel on a
+    # GSPMD-sharded basis would force replication.
     fused_mesh = None
-    fused_force_jnp = False
     if fused:
         from ..parallel import active_mesh
 
-        _fm = active_mesh()
-        if _fm is not None:
-            _dt = jnp.dtype(system_dtype(bv, x0))
-            if (
-                ip is None
-                and M is None
-                and basis_dtype is None
-                and not jnp.issubdtype(_dt, jnp.complexfloating)
-                and _fused_sharded_ok(
-                    N, int(_fm.devices.size), m + 1, _dt.itemsize
-                )
-            ):
-                fused_mesh = _fm
-            else:
-                fused_force_jnp = True
-    if (pallas or fused) and ip is not None:
-        raise ValueError(
-            "the Pallas orthogonalization path supports the Euclidean "
-            "inner product only; use ortho='bmgs2' or 'cgs2' with ip"
-        )
-    if fused and M is not None:
-        raise ValueError(
-            "ortho='cgs2_fused' does not support the dual-basis form "
-            "required by M; use ortho='cgs2'"
-        )
+        _dt = jnp.dtype(system_dtype(bv, x0))
+        if not _fused_ok(ip, M, basis_dtype, _dt, interpret):
+            raise ValueError(
+                "ortho='cgs2_fused' needs a float32 system, the "
+                "Euclidean inner product, no M, no basis_dtype and a "
+                "GPU backend (or interpret=True); use ortho='cgs2' or "
+                "'cgs2_1r'"
+            )
+        fused_mesh = active_mesh()
+        if fused_mesh is not None and N % int(fused_mesh.devices.size):
+            raise ValueError(
+                f"ortho='cgs2_fused' on a mesh needs N={N} divisible by "
+                f"the mesh size {int(fused_mesh.devices.size)}; use "
+                "ortho='cgs2_1r'"
+            )
     with_M = M_mv is not None
 
     dtype = system_dtype(bv, x0)
@@ -423,7 +393,7 @@ def gmres(
             raise ValueError(
                 "basis_dtype requires the Euclidean inner product"
             )
-        if sequential or pallas or fused:
+        if sequential or fused:
             raise ValueError(
                 "basis_dtype requires a batched/paneled ortho scheme "
                 "(cgs/cgs2/bmgs/bmgs2) or the one-reduce cgs2_1r"
@@ -668,9 +638,8 @@ def gmres(
             # THE one fused reduction of the iteration: second GS pass
             # of u, its norm (Pythagorean identity on the same row), and
             # the first GS pass of w = op(u).  The pair is stacked
-            # ROW-major (2, N) and contracted over the trailing axis --
-            # a column-major (N, 2) operand would be lane-padded to
-            # (N, 128) on TPU (measured 2x iteration cost).  With fused
+            # ROW-major (2, N) and contracted over the trailing axis,
+            # so both operands stream contiguously.  With fused
             # deflation the same contraction also reads the Uo rows and
             # the B W2 columns, yielding capture + projection data.
             if d_defl:
@@ -864,14 +833,14 @@ def gmres(
             return result, internals
         return result
 
-    # panel height for the blocked-MGS path: sublane-aligned, clipped to
+    # panel height for the blocked-MGS path: 16 rows, clipped to
     # the basis height so the dynamic row slice is always in range
     panel_rows = max(1, min(16, m + 1))
 
-    # prefix buckets for the batched (cgs/cgs2) schemes: the sweep runs
-    # over a static row-prefix V[:h] with the smallest bucket h >= k+2,
-    # so HBM traffic follows the current Krylov dimension instead of the
-    # full maxiter-sized buffer.  Arithmetic is unchanged: rows beyond k
+    # prefix buckets for the batched (cgs/cgs2/cgs2_fused) schemes: the
+    # sweep runs over a static row-prefix V[:h] with the smallest bucket
+    # h >= k+1, so HBM traffic follows the current Krylov dimension
+    # instead of the full maxiter-sized buffer.  Arithmetic is unchanged: rows beyond k
     # are masked to zero coefficients and the buffer rows are
     # zero-initialized, so the extra rows of a bucket contribute exact
     # zeros.  Doubling buckets bound the compiled-branch count by
@@ -938,65 +907,45 @@ def gmres(
             active_panels = k // panel_rows + 1
             for _ in range(passes):
                 w, h = lax.fori_loop(0, active_panels, panel_body, (w, h))
-        elif pallas:
-            from ..kernels.orthogonalize import cgs_project
-
-            # Mosaic compiles on TPU only; elsewhere (CPU tests, virtual
-            # meshes) the kernel runs in interpreter mode
-            interp = jax.default_backend() != "tpu"
-            for _ in range(passes):
-                w, coeffs = cgs_project(
-                    V, w, mask.astype(w.real.dtype), basis=basis,
-                    interpret=interp,
+        else:
+            if fused:
+                from ..kernels.orthogonalize import (
+                    cgs2_fused,
+                    cgs2_fused_sharded,
                 )
-                h = h + coeffs
-        elif fused:
-            from ..kernels.orthogonalize import (
-                _vmem_block,
-                cgs2_fused,
-                cgs2_fused_sharded,
-            )
 
-            interp = jax.default_backend() != "tpu"
-            fmask = mask.astype(w.real.dtype)
-            if fused_mesh is not None:
-                # per-shard fused kernels + psum'd coefficients: 3 local
-                # HBM sweeps, 2 all-reduces (pinned in
-                # tests/test_collectives.py)
-                def make_branch(hgt):
-                    def branch(operands):
-                        w_b, h_b = operands
-                        w_b, c = cgs2_fused_sharded(
+                fmask = mask.astype(w.real.dtype)
+                if fused_mesh is not None:
+                    # per-shard fused kernels + psum'd coefficients: 3
+                    # local sweeps, 2 all-reduces (pinned in
+                    # tests/test_collectives.py)
+                    def sweep(w_b, hgt):
+                        return cgs2_fused_sharded(
                             V, w_b, fmask, mesh=fused_mesh, rows=hgt,
-                            interpret=interp,
+                            interpret=interpret,
                         )
-                        return w_b, h_b + c
-                    return branch
-            elif fused_force_jnp or _vmem_block(
-                N, m + 1, 4096, jnp.dtype(bdt).itemsize
-            ) is None:
-                # no tiling feasible at the WORST-CASE bucket height
-                # (policy must agree with the kernel's own _vmem_block
-                # check, ADVICE r4): bucketed jnp fallback
-                def make_branch(hgt):
-                    def branch(operands):
-                        w_b, h_b = operands
-                        Vh, mh = V[:hgt], fmask[:hgt]
-                        for _ in range(passes):
-                            c = row_proj(Vh, w_b) * mh
-                            w_b = w_b - row_upd(c, Vh)
-                            h_b = h_b.at[:hgt].add(c)
-                        return w_b, h_b
-                    return branch
+                else:
+                    def sweep(w_b, hgt):
+                        return cgs2_fused(
+                            V, w_b, fmask, rows=hgt, interpret=interpret
+                        )
             else:
-                def make_branch(hgt):
-                    def branch(operands):
-                        w_b, h_b = operands
-                        w_b, c = cgs2_fused(
-                            V, w_b, fmask, rows=hgt, interpret=interp
-                        )
-                        return w_b, h_b + c
-                    return branch
+                # batched CGS over the prefix: `passes` projection +
+                # update pairs, rows beyond k masked
+                def sweep(w_b, hgt):
+                    c_all = jnp.zeros(m + 1, dtype)
+                    for _ in range(passes):
+                        coeffs = row_proj(V[:hgt], w_b) * mask[:hgt]
+                        w_b = w_b - row_upd(coeffs, basis[:hgt])
+                        c_all = c_all.at[:hgt].add(coeffs)
+                    return w_b, c_all
+
+            def make_branch(hgt):
+                def branch(operands):
+                    w_b, h_b = operands
+                    w_b, c = sweep(w_b, hgt)
+                    return w_b, h_b + c
+                return branch
 
             idx = jnp.searchsorted(
                 jnp.asarray(bucket_heights), k + 1, side="left"
@@ -1004,19 +953,6 @@ def gmres(
             w, h = lax.switch(
                 idx, [make_branch(hh) for hh in bucket_heights], (w, h)
             )
-        else:
-            # full-buffer batched CGS: rows beyond k are masked.  A
-            # bucketed prefix (lax.switch over static slices V[:h]) was
-            # measured SLOWER (4191 vs 2087 us/iter at m=40/1M dof):
-            # the XLA slice feeding the dots materializes a prefix copy
-            # whose read+write traffic cancels the smaller sweep.  The
-            # no-copy prefix sweep lives in the Pallas path
-            # (ortho='cgs2_fused'), whose BlockSpec reads only the
-            # leading rows.
-            for _ in range(passes):
-                coeffs = row_proj(V, w) * mask
-                w = w - row_upd(coeffs, basis)
-                h = h + coeffs
         return w, h
 
     def cond(state):
@@ -1059,8 +995,8 @@ def gmres(
 
         # apply the k previous rotations to the new column in ONE small
         # matvec against the accumulated rotation product (rows >= k of Q
-        # are still identity, so this equals the sequential chain; a
-        # per-rotation scalar loop costs ~200us/iter on TPU, this ~nothing)
+        # are still identity, so this equals the sequential chain without
+        # a per-rotation scalar loop)
         col = jnp.dot(state.Q, h)
 
         # new rotation zeroing the subdiagonal

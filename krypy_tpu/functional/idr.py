@@ -11,9 +11,9 @@ robustness on strongly nonsymmetric/indefinite spectra at a fixed
 memory footprint of :math:`2s+2` long vectors -- the nonsymmetric
 memory-scaling lever of SURVEY.md section 5.7 with a dial on it.
 
-TPU-native design: the shadow block :math:`P` is a fixed orthonormal
+accelerator-native design: the shadow block :math:`P` is a fixed orthonormal
 ``(s, N)`` panel, so every projection :math:`P^* v` in the recurrence
-is ONE ``(s, N) x (N,)`` MXU contraction (= one all-reduce on a sharded
+is ONE ``(s, N) x (N,)`` contraction (= one all-reduce on a sharded
 mesh) instead of ``s`` sequential dots; the inner ``k = 0..s-1`` stage
 loop is unrolled at trace time (``s`` is static), keeping all shapes
 fixed; the whole solve is one ``lax.while_loop`` whose body performs a
@@ -38,7 +38,7 @@ cycle-start projection entirely.  The small corrections (``M``-column
 and ``g``-Gram updates) are replicated O(s^2) work.
 
 Reference baseline: krypy has no IDR surface (its nonsymmetric answer
-is GMRES, krypy/linsys.py:877-1018); TPU-native addition.
+is GMRES, krypy/linsys.py:877-1018); accelerator-native addition.
 """
 
 from typing import NamedTuple

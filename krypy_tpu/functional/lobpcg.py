@@ -7,12 +7,12 @@ in the basis-orthonormalized ("ortho") variant of Hetmaniuk & Lehoucq /
 Duersch et al. 2018, which trades extra block GEMMs for robustness of
 the Rayleigh-Ritz step.
 
-This is the natural TPU eigensolver shape and the deliberate complement
+This is the natural accelerator eigensolver shape and the deliberate complement
 to :func:`~krypy_tpu.functional.eigh.eigsh`:
 
 * **every** operation is a block GEMM on ``(3k, N)`` panels -- matvecs,
   projections, panel factorizations, Rayleigh-Ritz assembly all map
-  straight onto the MXU with k-fold wider operands than Lanczos;
+  straight onto the matrix units with k-fold wider operands than Lanczos;
 * unlike shift-invert Lanczos it needs **no inner solves** -- only one
   application of A (and of the preconditioner / B) per wanted pair per
   iteration, so interior accuracy comes from the preconditioner
@@ -20,7 +20,7 @@ to :func:`~krypy_tpu.functional.eigh.eigsh`:
 * the whole solve is one ``lax.while_loop`` -- a single XLA dispatch --
   with fixed-shape ``(k, N)`` row-major blocks (the functional-lane
   convention) that shard over a mesh like every other core: the Gram
-  contractions become partial dots + one ICI all-reduce each.
+  contractions become partial dots + one all-reduce each.
 
 Robustness choices (all measured conventions shared with the rest of
 the lane):
@@ -38,7 +38,7 @@ the lane):
   directions from the trial space without dynamic shapes.
 
 The reference exposes no eigensolver at all (only Ritz extraction from
-existing solves, krypy/utils.py:1380-1465); this module is TPU-native
+existing solves, krypy/utils.py:1380-1465); this module is accelerator-native
 extra surface with the same status-code contract as the linear solvers.
 """
 
@@ -294,9 +294,9 @@ def lobpcg(
         relative dot-product noise -- far above any O(eps)-shifted
         Cholesky's guard -- and a multigrid-preconditioned residual
         block is nearly rank-1 (all rows map toward the smooth error),
-        so the shifted factor went indefinite -> NaN under the TPU's
-        accumulation order (measured: first advance step at 1M dof;
-        host CPU rounded the same Gram PSD).  An eigendecomposition
+        so the shifted factor can go indefinite -> NaN under one
+        accumulation order while another rounds the same Gram PSD
+        (first advance step at 1M dof).  An eigendecomposition
         cannot produce NaN, and clamped directions deflate cleanly."""
         j = Z.shape[0]
         eps = float(jnp.finfo(real_dtype).eps)

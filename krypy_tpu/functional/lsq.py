@@ -11,7 +11,7 @@ Golub-Kahan bidiagonalization: LSQR (Paige & Saunders 1982) is CG on the
 normal equations in exact arithmetic, LSMR (Fong & Saunders 2011) is
 MINRES on them, so LSMR's :math:`\|A^H r_k\|` decreases monotonically.
 
-TPU-native design: the whole iteration is scalar recurrences plus two
+accelerator-native design: the whole iteration is scalar recurrences plus two
 matvecs (:math:`A v` and :math:`A^H u`) and two vector norms per step,
 all inside one ``lax.while_loop`` -- a solve is a single XLA dispatch.
 There is no Krylov buffer at all (short recurrence), so memory is five
@@ -21,7 +21,7 @@ all-reduces; nothing else communicates).
 
 The reference framework has no least-squares surface (krypy's solvers
 require square systems, krypy/linsys.py:38-123); this module is
-TPU-native extra capability with the same SolveResult contract.
+accelerator-native extra capability with the same SolveResult contract.
 """
 
 import warnings

@@ -1,6 +1,6 @@
 r"""Jacobian-free Newton-Krylov for nonlinear systems F(x) = 0.
 
-The TPU-native twist the reference cannot offer: the Jacobian operator
+The accelerator-native twist the reference cannot offer: the Jacobian operator
 is ``jax.jvp`` -- exact directional derivatives from autodiff, traced
 into the SAME compiled program as the inner Krylov solve, so one Newton
 step (residual, J-matvec GMRES, candidate updates) is one device
@@ -56,11 +56,11 @@ class NewtonResult(NamedTuple):
     status: int
     #: inner Krylov iterations per Newton step (numpy int array)
     inner_history: np.ndarray = np.zeros(0, int)
-    #: wall seconds per inner (Jacobian) solve, synced by scalar fetch
+    #: wall seconds per inner (Jacobian) solve
     inner_walls: np.ndarray = np.zeros(0)
     #: wall seconds of the pre-loop compile warmup (0.0 without
-    #: ``warmup=True``); remote-TPU compiles dominate a short sequence's
-    #: total, so report it separately from serving time
+    #: ``warmup=True``); compiles dominate a short sequence's total, so
+    #: report it separately from serving time
     warmup_s: float = 0.0
 
     @property
@@ -160,9 +160,9 @@ def newton_krylov(
     @jax.jit
     def trial_step(xx, dx, t):
         # candidate iterate, its residual AND the norm in one dispatch:
-        # through a ~25 ms/dispatch transport the per-step pattern
-        # "trial norm, then separate update + residual" triples the
-        # latency of the common accept-at-t=1 path
+        # the per-step pattern "trial norm, then separate update +
+        # residual" triples the dispatches of the common accept-at-t=1
+        # path
         xn = xx + t.astype(dtype) * dx
         rn = F(xn)
         return xn, rn, jnp.linalg.norm(rn)

@@ -1,35 +1,30 @@
 """Shared mesh price model for the ``auto`` scheme/variant policies.
 
 Every latency-vs-bandwidth decision in the package (GMRES
-``ortho='auto'``, CG/MINRES/shifted-CG ``variant='auto'``) prices the
-same two quantities:
+``ortho='auto'``, CG/MINRES/shifted-CG ``variant='auto'``, which
+multigrid levels split over a mesh) prices the same two quantities:
 
 * the cost of ONE sync point -- an all-reduce round trip over the mesh
   interconnect (``sync_s``), and
-* the cost of streaming one element of local HBM traffic
+* the cost of streaming one element of local device-memory traffic
   (``1 / hbm_bytes_per_s``).
 
 A one-reduce rearrangement trades sync points for extra local traffic,
 so the decision is ``syncs_saved * sync_s  >  extra_sweeps *
 n_local * itemsize / hbm_bytes_per_s`` -- with ``extra_sweeps``
-calibrated per solver from measured single-chip costs
-(benchmarks/onereduce_bench.py, RESULTS_r4.md: at 1.05M dof f32 the
-Chronopoulos-Gear CG costs 111.6 vs classic 36.1 us/iter and one-reduce
-MINRES 155.8 vs 57.6, i.e. 12.4 / 16.2 equivalent basis-vector sweeps
-of extra traffic at the measured 690 GB/s stream rate).
+calibrated per solver from measured single-device costs
+(benchmarks/onereduce_bench.py).
 
-The constants are NOT baked in per-chip (VERDICT r4 weak #3): they
-resolve, in priority order, from
+The constants resolve, in priority order, from
 
 1. an explicit module override (``policy.SYNC_S`` /
    ``policy.HBM_BYTES_PER_S`` -- tests monkeypatch these; embedders can
    set them after a microbenchmark of their own fabric),
 2. the ``KRYPY_TPU_SYNC_S`` / ``KRYPY_TPU_HBM_BYTES_PER_S`` environment
-   variables (deployment-time calibration without code changes, e.g.
-   ``KRYPY_TPU_SYNC_S=1e-4`` on a DCN-spanning mesh or ``2e-6`` on a
-   2-chip ICI hop),
-3. a per-backend default table (this chip's measured numbers for TPU,
-   order-of-magnitude defaults elsewhere).
+   variables (deployment-time calibration without code changes, e.g. a
+   mesh that spans hosts),
+3. a per-backend table of measured numbers.  A backend missing from the
+   table is an error, not a default.
 
 The reference has no analog: krypy is single-address-space
 (SURVEY.md section 2) and never prices communication.
@@ -53,51 +48,56 @@ __all__ = [
 SYNC_S = None
 HBM_BYTES_PER_S = None
 
-#: per-backend one-sync (all-reduce round trip) cost in seconds.  The
-#: TPU entry is this chip's measured ICI-class figure; CPU meshes (the
-#: virtual test mesh) share address space, so a sync is approximately a
-#: barrier; GPU NVLink sits in between.
+#: per-backend one-sync (all-reduce round trip) cost in seconds.
+#: "gpu": a dependent chain of 64-float psums over four NVIDIA H100 80GB
+#: HBM3 cards joined by NVLink, 700 W power limit (chip_smoke.py
+#: --four-cards: 15.2-24.2 us over five runs; 16.7 us kept).  "cpu":
+#: the virtual test mesh shares one address space, so a sync is about a
+#: barrier (order of magnitude, not measured).
 SYNC_S_TABLE = {
-    "tpu": 15e-6,
-    "gpu": 8e-6,
+    "gpu": 16.7e-6,
     "cpu": 2e-6,
 }
-_DEFAULT_SYNC_S = 15e-6
 
-#: per-backend achievable HBM stream rate (bytes/s).  TPU: measured
-#: 690 GB/s = 85% of the v5e datasheet (CLAUDE.md / stream_bench.py).
+#: per-backend achievable device-memory stream rate (bytes/s).
+#: "gpu": the 256 MB copy rate of chip_smoke.py phase 2 on one NVIDIA
+#: H100 80GB HBM3 with a 400 W power limit (2758 GB/s).  "cpu": order of
+#: magnitude, not measured.
 HBM_BYTES_PER_S_TABLE = {
-    "tpu": 690e9,
-    "gpu": 900e9,
+    "gpu": 2.758e12,
     "cpu": 40e9,
 }
-_DEFAULT_HBM_BYTES_PER_S = 690e9
 
 #: calibrated extra local traffic of the one-reduce rearrangement, in
-#: equivalent basis-vector sweeps per iteration (measured single-chip
-#: cost delta at 1.05M dof f32 divided by the one-sweep stream time;
-#: benchmarks/onereduce_bench.py, RESULTS_r4.md).  The shifted family
-#: shares CG's recurrence structure per shift; the extra vectors are
-#: per-family, not per-shift, so the CG figure is the right per-shard
-#: price there too.
+#: equivalent basis-vector sweeps per iteration: the measured
+#: single-device cost delta (one-reduce minus classic, per iteration)
+#: divided by the time of one vector sweep at the same run's copy rate.
+#: Measured with benchmarks/onereduce_bench.py (K 20 -> 40 at 1.05M dof
+#: f32) on one NVIDIA H100 80GB HBM3 with a 400 W power limit.
+#: Deflated MINRES is not measured: its fold of the oblique projection
+#: into the cross-Gram contraction is the deflated CG fold, so it takes
+#: that figure.  Solvers without an entry (shifted CG) price at the CG
+#: figure.
 ONE_REDUCE_EXTRA_SWEEPS = {
-    "cg": 12.4,
-    "minres": 16.2,
-    "shifted_cg": 12.4,
-    # measured round 5 (onereduce_bench, K100->600 slope at 1.05M f32):
-    # qmr 74.2 -> 602.9 us/iter -- the (9,N)x(N,6) cross-Gram's operand
-    # stacks dominate; a pure mesh-latency lane (syncs 4 -> 1)
-    "qmr": 87.0,
-    # deflated short recurrences (d=4): CG 258.7 -> 356.8 us/iter;
-    # MINRES's fold is structurally identical
-    "deflated_cg": 16.0,
-    "deflated_minres": 16.0,
-    # idrs (s=4), per MATVEC: the 1r inner step stacks an
-    # (s+2+k, N) x (N, 2) operand vs classic's two (s, N) projections
-    # -- measured on the real chip (onereduce_bench K20->40 slope at
-    # 1.05M f32, round 5): 298.0 -> 401.7 us/matvec
-    "idrs": 17.1,
+    "cg": 4.3,
+    "minres": 179.4,
+    "qmr": 190.9,
+    "deflated_cg": 116.9,
+    "deflated_minres": 116.9,
+    # idrs (s=4), per MATVEC
+    "idrs": 158.4,
 }
+
+
+def _table_entry(table, what, env):
+    backend = jax.default_backend()
+    try:
+        return table[backend]
+    except KeyError:
+        raise RuntimeError(
+            f"no measured {what} for the {backend!r} backend; set "
+            f"{env} (or the policy module override) to calibrate it"
+        ) from None
 
 
 def sync_s():
@@ -107,7 +107,7 @@ def sync_s():
     env = os.environ.get("KRYPY_TPU_SYNC_S")
     if env:
         return float(env)
-    return SYNC_S_TABLE.get(jax.default_backend(), _DEFAULT_SYNC_S)
+    return _table_entry(SYNC_S_TABLE, "sync cost", "KRYPY_TPU_SYNC_S")
 
 
 def hbm_bytes_per_s():
@@ -117,8 +117,8 @@ def hbm_bytes_per_s():
     env = os.environ.get("KRYPY_TPU_HBM_BYTES_PER_S")
     if env:
         return float(env)
-    return HBM_BYTES_PER_S_TABLE.get(
-        jax.default_backend(), _DEFAULT_HBM_BYTES_PER_S
+    return _table_entry(
+        HBM_BYTES_PER_S_TABLE, "stream rate", "KRYPY_TPU_HBM_BYTES_PER_S"
     )
 
 
@@ -135,10 +135,9 @@ def prefer_one_reduce(solver, n_local, itemsize, syncs_saved=1):
     :data:`ONE_REDUCE_EXTRA_SWEEPS`; unknown solvers price at the CG
     figure.
 
-    On a latency-cheap mesh (small ``sync_s``, e.g. a 2-chip ICI hop or
-    the shared-memory CPU test mesh) with large shards this correctly
-    returns False -- classic CG at ~3x less local traffic is the
-    HBM-roofline choice there (VERDICT r4 weak #1).
+    On a latency-cheap mesh (small ``sync_s``, e.g. the shared-memory
+    CPU test mesh) with large shards this returns False -- classic CG at
+    less local traffic is the bandwidth-bound choice there.
     """
     extra = ONE_REDUCE_EXTRA_SWEEPS.get(solver, ONE_REDUCE_EXTRA_SWEEPS["cg"])
     return syncs_saved * sync_s() > extra * sweep_s(n_local, itemsize)

@@ -10,7 +10,7 @@ GMRES's O(k N) growing sweep (the nonsymmetric memory-scaling lever of
 SURVEY.md section 5.7, complementing BiCGStab/IDR(s)/TFQMR which avoid
 the transpose at the price of squared/filtered residual polynomials).
 
-TPU-first: the transpose operator is derived AUTOMATICALLY with
+accelerator-first: the transpose operator is derived AUTOMATICALLY with
 ``jax.linear_transpose`` -- in a functional framework the traced matvec
 IS the operator, so its (bilinear) transpose is compiler-derived, not
 user-supplied; the classic reason QMR is avoided in matrix-free codes
@@ -34,7 +34,7 @@ epsilon, gamma) detected on-device and reported as BREAKDOWN with the
 last iterate, stagnation guard for reduced-precision floors.
 
 Reference baseline: krypy has no two-sided-Lanczos surface (its
-nonsymmetric answer is GMRES, krypy/linsys.py:877-1018); TPU-native.
+nonsymmetric answer is GMRES, krypy/linsys.py:877-1018); accelerator-native.
 """
 
 from typing import NamedTuple

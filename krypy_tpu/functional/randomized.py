@@ -2,9 +2,9 @@ r"""Randomized low-rank primitives: randomized SVD and the Nystrom
 preconditioner.
 
 Both are pure block-GEMM algorithms (Halko-Martinsson-Tropp range
-finding): every flop is a ``(N, l)`` panel contraction on the MXU, there
+finding): every flop is a ``(N, l)`` panel contraction on the matrix units, there
 are no per-vector inner products and no growing sweeps, and the number
-of operator applications is fixed up front -- the natural TPU shape for
+of operator applications is fixed up front -- the natural accelerator shape for
 low-rank approximation, complementing the iterative extreme-triplet
 solver :func:`~krypy_tpu.functional.svd.svds` (LOBPCG) which serves
 high-accuracy ends of the spectrum.
@@ -28,7 +28,7 @@ trick is benign at the accuracy level randomized sketches deliver; the
 guarded square roots clamp noise-level directions.
 
 Reference baseline: krypy has no randomized or low-rank surface
-(krypy/linsys.py serves square solves only); TPU-native extra surface.
+(krypy/linsys.py serves square solves only); accelerator-native extra surface.
 """
 
 import math
@@ -238,7 +238,7 @@ def hutchpp(A, key, *, n=None, k=32, n_probes=32, Ah=None, dtype=None):
     passing ``A = lambda v: funm-apply`` here when ``f(A)`` has rapid
     spectral decay.
 
-    TPU shape: everything is three ``(N, k/n_probes)`` block operator
+    Accelerator shape: everything is three ``(N, k/n_probes)`` block operator
     applications + panel GEMMs; no per-probe loop.
 
     :param key: PRNGKey for the sketch and the probes.

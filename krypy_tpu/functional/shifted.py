@@ -9,10 +9,10 @@ one ``(n_shifts, m) x (m, N)`` GEMM.  Standard tool for Tikhonov
 parameter sweeps, rational matrix-function approximation, and
 frequency-domain solves.
 
-TPU-native mapping: the expensive part (basis build) is the usual
+accelerator-native mapping: the expensive part (basis build) is the usual
 batched-CGS2 Arnoldi; the per-shift small solves are ``jax.vmap`` over
 the replicated ``(m+1, m)`` Hessenberg -- thousands of shifts cost one
-batched QR on dense MXU-shaped tiles; the assembly GEMM reads the basis
+batched QR on dense matrix-unit-shaped tiles; the assembly GEMM reads the basis
 exactly once for all shifts.  The reference solves shifted systems one
 at a time, rebuilding the Krylov space per shift (krypy has no
 multi-shift surface).

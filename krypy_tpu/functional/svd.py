@@ -5,7 +5,7 @@ rectangular) operator.
 operator :math:`C = A^H A` (SPD on the column space) with
 ``which='la'``, then recovers :math:`\sigma_i = \sqrt{\theta_i}` and
 the left vectors :math:`u_i = A v_i / \sigma_i`.  This is the natural
-TPU shape -- the whole solve is ``(3k, N)`` block GEMMs inside one
+Accelerator shape -- the whole solve is ``(3k, N)`` block GEMMs inside one
 compiled while_loop, with one A and one :math:`A^H` application per
 wanted triplet per iteration -- and squaring the spectrum is benign for
 the LARGEST singular values (their relative gaps only widen; the
@@ -22,7 +22,7 @@ eigensolve's estimates -- the same honesty convention as ``eigsh``'s
 shift-invert verification.
 
 The reference has no SVD surface at all (krypy exposes only square-system
-solvers, krypy/linsys.py); this module is TPU-native extra surface.
+solvers, krypy/linsys.py); this module is accelerator-native extra surface.
 """
 
 from typing import NamedTuple

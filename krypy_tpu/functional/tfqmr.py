@@ -7,7 +7,7 @@ residual over the Krylov space that smooths the erratic CGS-style
 convergence -- useful when BiCGStab's stabilization polynomial breaks
 down (its `omega` can vanish on strongly nonnormal operators).
 
-TPU-native design: one ``lax.while_loop`` over HALF-steps; per full
+accelerator-native design: one ``lax.while_loop`` over HALF-steps; per full
 iteration 2 matvecs + 2 quasi-residual reductions + 2 norm reductions.
 The cheap quasi-residual BOUND :math:`\tau_m \sqrt{m+1}` drives the
 iteration; candidate convergence triggers an EXPLICIT residual
@@ -17,7 +17,7 @@ standard policy).
 
 Reference baseline: krypy has no nonsymmetric short-recurrence solver
 at all (its nonsymmetric option is full-memory GMRES,
-krypy/linsys.py:919-1004); TFQMR is TPU-native extra surface.
+krypy/linsys.py:919-1004); TFQMR is accelerator-native extra surface.
 """
 
 from typing import NamedTuple

@@ -1,21 +1,19 @@
-"""Pallas TPU kernels for the solver hot paths.
+"""Hand-written GPU kernels for the solver hot paths.
 
-The reference's "native layer" is BLAS under numpy (SURVEY.md L0); here it
-is custom TPU kernels:
+The reference's "native layer" is BLAS under numpy (SURVEY.md L0).  Here
+XLA compiles almost everything; a kernel exists only where XLA leaves
+bandwidth on the table:
 
-* :mod:`~krypy_tpu.kernels.stencil` -- 5-point Laplacian matvec with
-  in-kernel halo handling: one HBM read + one write per application,
-  instead of the pad/shift temporaries of the lowered jnp formulation.
-* :mod:`~krypy_tpu.kernels.orthogonalize` -- fused blocked classical
-  Gram-Schmidt projection: coefficient contraction and basis update in a
-  single two-phase kernel, keeping the iteration vector in VMEM between
-  the passes.
+* :mod:`~krypy_tpu.kernels.orthogonalize` -- fused two-pass classical
+  Gram-Schmidt (``ortho='cgs2_fused'``): the middle update+projection
+  pair of CGS2 in one sweep of the basis, as a Pallas kernel on the
+  Triton route.
 
-All kernels run in interpreter mode off-TPU, which is how the CPU test
-suite validates them.
+Kernels compile for the GPU only.  ``interpret=True``, passed by name,
+runs them in the Pallas interpreter, which is how the CPU tests check
+them.
 """
 
-from .orthogonalize import cgs_project
-from .stencil import laplacian_2d_kernel
+from .orthogonalize import cgs2_fused
 
-__all__ = ["cgs_project", "laplacian_2d_kernel"]
+__all__ = ["cgs2_fused"]

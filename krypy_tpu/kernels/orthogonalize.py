@@ -1,22 +1,25 @@
-"""Fused blocked Gram-Schmidt projection kernel.
+"""Fused two-pass classical Gram-Schmidt (CGS2) for the GPU.
 
-Computes, for a row-major basis ``V`` of shape ``(m, N)``, a dual basis
-``B`` (equal to V unless a preconditioner maintains a second basis), an
-iteration vector ``w`` of shape ``(N,)`` and a row mask:
+For a row-major basis ``V`` of shape ``(m, N)``, a vector ``w`` of shape
+``(N,)``, a row mask and a static row prefix ``rows``, CGS2 computes
 
 .. math::
-    c_j = \\langle V_j, w\\rangle \\cdot \\text{mask}_j, \\qquad
-    w' = w - \\sum_j c_j B_j
+    c_1 = (V_r w) \\odot \\text{mask}, \\quad w_1 = w - c_1^T V_r, \\quad
+    c_2 = (V_r w_1) \\odot \\text{mask}, \\quad w_2 = w_1 - c_2^T V_r
 
-in one ``pallas_call`` with a two-phase grid: phase 0 sweeps the column
-tiles accumulating the coefficients in a VMEM scratch (MXU contraction per
-tile), phase 1 sweeps again applying the update.  The coefficient vector
-never round-trips through HBM and the kernel exposes the natural tiling
-hook for double-buffered DMA.
+with :math:`V_r` the leading ``rows`` rows.  Done as four GEMVs that is
+four sweeps of :math:`V_r`: XLA does not fuse two GEMVs of which the
+second reads the first one's output.  Here the middle two share one
+sweep: :func:`apply_project` is a Pallas kernel (Triton route) in which
+each program owns one column tile of :math:`V_r`, holds it in registers,
+applies the first-pass update and projects the updated tile for the
+second-pass coefficients.  The programs write their partial coefficients
+to an ``(n_tiles, rows)`` buffer and a jnp sum finishes them.  The first
+projection and the final update are plain GEMVs.  Three sweeps instead
+of four.
 
-This is the Euclidean-inner-product fast path used by the functional GMRES
-core (reference MGS loop: krypy/utils.py:1012-1029; the batched-CGS
-reformulation has dmgs-class stability, see krypy_tpu/arnoldi.py).
+The reference MGS loop is krypy/utils.py:1012-1029; the batched-CGS
+reformulation has dmgs-class stability, see krypy_tpu/arnoldi.py.
 """
 
 import functools
@@ -24,365 +27,184 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = [
-    "cgs_project",
     "cgs2_fused",
     "cgs2_fused_sharded",
+    "check_fused_eligible",
     "project_prefix",
     "apply_project",
     "update_prefix",
 ]
 
+#: basis storage dtypes the kernel takes (the vector and the
+#: coefficients are float32)
+BASIS_DTYPES = (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
 
-def _kernel(V_ref, B_ref, w_ref, mask_ref, wout_ref, coeff_out_ref,
-            coeff_acc):
-    phase = pl.program_id(0)
-    j = pl.program_id(1)
-    n_tiles = pl.num_programs(1)
+#: elements of V one program holds in registers: the tile is
+#: ``rows_p2 x (TILE_ELEMS // rows_p2)``
+TILE_ELEMS = 8192
 
-    @pl.when((phase == 0) & (j == 0))
-    def _init():
-        coeff_acc[:, :] = jnp.zeros_like(coeff_acc)
 
-    @pl.when(phase == 0)
-    def _accumulate():
-        # partial coefficients of this column tile: (m, T) x (T, 1) MXU
-        # contraction (Mosaic requires 2-D operands)
-        part = jax.lax.dot_general(
-            V_ref[:, :].conj(),
-            w_ref[:, :],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=coeff_acc.dtype,
+def check_fused_eligible(V_dtype, w_dtype, interpret):
+    """Raise unless the fused kernel can run: a float32 or bfloat16
+    basis, a float32 vector, and a GPU backend (or ``interpret=True``,
+    which runs the kernel in the Pallas interpreter anywhere)."""
+    if jnp.dtype(V_dtype) not in BASIS_DTYPES:
+        raise ValueError(
+            f"cgs2_fused takes a float32 or bfloat16 basis, not {V_dtype}"
         )
-        coeff_acc[:, :] += part * mask_ref[:, :]
-
-    @pl.when(phase == 1)
-    def _apply():
-        # (m, 1)^T-contraction with (m, T): result (1, T)
-        update = jax.lax.dot_general(
-            coeff_acc[:, :],
-            B_ref[:, :],
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=w_ref.dtype,
+    if jnp.dtype(w_dtype) != jnp.float32:
+        raise ValueError(
+            f"cgs2_fused takes a float32 vector, not {w_dtype}"
         )
-        wout_ref[:, :] = w_ref[:, :] - update.astype(wout_ref.dtype)
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "cgs2_fused is compiled for the GPU (Pallas, Triton route); "
+            f"the backend is {jax.default_backend()!r}.  Pass "
+            "interpret=True to run it in the Pallas interpreter."
+        )
 
-        @pl.when(j == n_tiles - 1)
-        def _emit_coeffs():
-            coeff_out_ref[:, :] = coeff_acc[:, :]
+
+def _rows_p2(rows):
+    return pl.next_power_of_2(max(int(rows), 1))
 
 
-def _project_prefix_kernel(V_ref, w_ref, mask_ref, c_out, c_acc):
-    """Projection-only sweep: ``c = (V[:rows] w^*-contraction) * mask``
-    accumulated across column tiles in VMEM.  One HBM read of the
-    prefix, no update -- the first sweep of the (sharded) fused CGS2,
-    where the coefficients must be complete (psum'd, on a mesh) before
-    the update may run."""
+def _tile_cols(rows_p2, block_n):
+    if block_n is not None:
+        return pl.next_power_of_2(int(block_n))
+    return max(128, min(2048, TILE_ELEMS // rows_p2))
+
+
+def _apply_project_kernel(V_ref, w_ref, c_ref, mask_ref, w1_ref, part_ref,
+                          *, rows, n, tile):
     j = pl.program_id(0)
-    n_tiles = pl.num_programs(0)
-
-    @pl.when(j == 0)
-    def _init():
-        c_acc[:, :] = jnp.zeros_like(c_acc)
-
-    part = jax.lax.dot_general(
-        V_ref[:, :].conj(),
-        w_ref[:, :],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=c_acc.dtype,
-    )
-    c_acc[:, :] += part * mask_ref[:, :]
-
-    @pl.when(j == n_tiles - 1)
-    def _emit():
-        c_out[:, :] = c_acc[:, :]
-
-
-def _apply_project_kernel(V_ref, w_ref, c_ref, mask_ref, w1_ref, c2_out,
-                          c2_acc):
-    """Fused update+project: each column slab of V is read ONCE from HBM
-    and used twice -- apply the (known) first-pass coefficients
-    ``w1 = w - c^T V`` and project the updated vector for the
-    second-pass coefficients ``c2 = (V w1) * mask``.  The middle sweep
-    of the fused CGS2."""
-    j = pl.program_id(0)
-    n_tiles = pl.num_programs(0)
-
-    @pl.when(j == 0)
-    def _init():
-        c2_acc[:, :] = jnp.zeros_like(c2_acc)
-
-    slab = V_ref[:, :]
-    update = jax.lax.dot_general(
-        c_ref[:, :],
-        slab,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=w_ref.dtype,
-    )
-    w1 = w_ref[:, :] - update.astype(w_ref.dtype)
-    w1_ref[:, :] = w1
-    part = jax.lax.dot_general(
-        slab.conj(),
-        w1,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=c2_acc.dtype,
-    )
-    c2_acc[:, :] += part * mask_ref[:, :]
-
-    @pl.when(j == n_tiles - 1)
-    def _emit():
-        c2_out[:, :] = c2_acc[:, :]
-
-
-def _update_kernel(V_ref, w_ref, c_ref, wout_ref):
-    """Final sweep of the fused CGS2: ``w2 = w1 - c2^T V``."""
-    update = jax.lax.dot_general(
-        c_ref[:, :],
-        V_ref[:, :],
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=w_ref.dtype,
-    )
-    wout_ref[:, :] = w_ref[:, :] - update.astype(wout_ref.dtype)
-
-
-def _divide_block(N, block_n):
-    """Largest MOSAIC-LEGAL divisor of N not above block_n (or None).
-
-    Mosaic requires the trailing block dimension to be a multiple of
-    128 OR equal to the full dimension -- a merely ">= 128" divisor
-    (e.g. 961 at N = 1023^2) lowers on CPU interpret mode but raises at
-    TPU compile time (hit by bench.py's ortho leg at the 2^k-1 grid
-    sizes, round 5).  So: the whole dimension when it fits in one
-    block, else the largest divisor that is a multiple of 128, else
-    None (callers fall back to the batched-jnp path).
-    """
-    if N <= block_n:
-        return N
-    if N % block_n == 0:
-        return block_n
-    best = None
-    for cand in range(block_n - block_n % 128, 127, -128):
-        if N % cand == 0:
-            best = cand
-            break
-    return best
-
-
-def _vmem_block(N, rows, block_n, itemsize=4):
-    """Column-tile size: large enough that the per-grid-step DMA
-    amortizes the fixed step overhead (a 4096-wide tile moves ~0.7 MB
-    in ~1 us -- pure overhead), small enough that the double-buffered
-    slab pair stays well inside the ~16 MB VMEM."""
-    budget = 6 * 1024 * 1024  # bytes per in-flight slab
-    cap = max(128, budget // (itemsize * max(rows, 1)))
-    return _divide_block(N, min(block_n, cap))
+    rp = c_ref.shape[0]
+    cols = j * tile + jnp.arange(tile)
+    cmask = cols < n
+    rmask = jnp.arange(rp) < rows
+    # one read of the (rows_p2, tile) slab of V; rows past `rows` and
+    # columns past n are masked to zero
+    slab = plgpu.load(
+        V_ref.at[pl.ds(0, rp), pl.ds(j * tile, tile)],
+        mask=rmask[:, None] & cmask[None, :],
+        other=0.0,
+    ).astype(jnp.float32)
+    w = plgpu.load(w_ref.at[pl.ds(j * tile, tile)], mask=cmask, other=0.0)
+    # elementwise products and reductions, not a dot: no TF32
+    w1 = w - jnp.sum(c_ref[...][:, None] * slab, axis=0)
+    plgpu.store(w1_ref.at[pl.ds(j * tile, tile)], w1, mask=cmask)
+    part_ref[j, :] = jnp.sum(slab * w1[None, :], axis=1) * mask_ref[...]
 
 
 @functools.partial(
     jax.jit, static_argnames=("rows", "block_n", "interpret")
 )
-def cgs2_fused(V, w, mask, *, rows=None, block_n=32768, interpret=False):
-    """Fused two-pass (CGS2) orthogonalization in THREE HBM sweeps of V.
+def apply_project(V, w, c, mask, *, rows=None, block_n=None,
+                  interpret=False):
+    """Update and project in ONE sweep of the ``rows`` prefix:
+    ``w1 = w - c[:rows]^T V[:rows]`` and
+    ``c2 = (V[:rows] w1) * mask[:rows]``.
 
-    Composed from the three single-phase prefix-sweep kernels
-    (:func:`project_prefix` -> :func:`apply_project` ->
-    :func:`update_prefix`).  A 2-phase-grid variant that kept the
-    coefficients VMEM-resident across both passes inside one
-    ``pallas_call`` was measured SLOWER (870-910 vs 550-710 us/rep at
-    rows=40 / 1M dof f32, slope-timed, benchmarks/ortho_bench.py
-    --kernels): the phase boundary of a multi-phase grid serializes the
-    pipeline, while three independent calls each double-buffer their
-    own sweep.
+    :param V: basis rows ``(m, N)``, float32 or bfloat16.
+    :param w: float32 vector ``(N,)``.
+    :param c: first-pass coefficients, length >= ``rows``.
+    :param mask: per-row multiplier, length >= ``rows``.
+    :param rows: static number of leading rows to sweep (default m).
+    :param block_n: column-tile width (rounded up to a power of two;
+      default: ``TILE_ELEMS`` elements of V per program).
+    :param interpret: run in the Pallas interpreter.
+    :return: ``(w1, c2)`` with ``c2`` zero-padded to length m.
+    """
+    check_fused_eligible(V.dtype, w.dtype, interpret)
+    m, n = V.shape
+    rows = m if rows is None else int(rows)
+    rp = _rows_p2(rows)
+    tile = _tile_cols(rp, block_n)
+    n_tiles = pl.cdiv(n, tile)
 
-    The BlockSpec reads only the leading ``rows`` rows of each column
-    tile straight from HBM -- a prefix sweep with NO materialized
-    prefix copy (an XLA-level ``V[:rows]`` slice feeding a dot copies
-    the prefix, which costs more than it saves).
+    def pad(v):
+        v = v[:rows].astype(jnp.float32)
+        return jnp.pad(v, (0, rp - rows))
 
-    :param V: basis rows, shape ``(m, N)``; only the first ``rows`` rows
-      are swept (static prefix bucket; defaults to all m).
-    :param w: vector to orthogonalize, shape ``(N,)``.
-    :param mask: per-row multiplier, shape ``(m,)``.
-    :param rows: static number of leading rows to sweep.
-    :param block_n: column-tile upper bound; the effective tile is
-      VMEM-aware (see :func:`_vmem_block`).
+    w1, parts = pl.pallas_call(
+        functools.partial(
+            _apply_project_kernel, rows=rows, n=n, tile=tile
+        ),
+        grid=(n_tiles,),
+        out_shape=[
+            jax.ShapeDtypeStruct((n,), jnp.float32),
+            jax.ShapeDtypeStruct((n_tiles, rp), jnp.float32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=4 if rp * tile <= 4096 else 8, num_stages=1
+        ),
+        interpret=interpret,
+        name="cgs2_apply_project",
+    )(V, w, pad(c), pad(mask))
+    c2 = jnp.sum(parts, axis=0)[:rows]
+    return w1, jnp.pad(c2, (0, m - rows))
+
+
+def project_prefix(V, w, mask, *, rows=None):
+    """First-pass coefficients ``(V[:rows] w) * mask[:rows]`` (one GEMV
+    sweep of the prefix), zero-padded to length m."""
+    m = V.shape[0]
+    rows = m if rows is None else int(rows)
+    c = jnp.dot(V[:rows], w, preferred_element_type=jnp.float32)
+    c = c * mask[:rows].astype(jnp.float32)
+    return jnp.pad(c, (0, m - rows))
+
+
+def update_prefix(V, w, c, *, rows=None):
+    """Final update ``w - c[:rows]^T V[:rows]`` (one GEMV sweep)."""
+    m = V.shape[0]
+    rows = m if rows is None else int(rows)
+    return w - jnp.dot(
+        c[:rows].astype(jnp.float32), V[:rows],
+        preferred_element_type=jnp.float32,
+    )
+
+
+def cgs2_fused(V, w, mask, *, rows=None, block_n=None, interpret=False):
+    """Two-pass CGS2 in three sweeps of the ``rows`` prefix of V:
+    :func:`project_prefix` -> :func:`apply_project` (kernel) ->
+    :func:`update_prefix`.
+
+    :param V: basis rows ``(m, N)``, float32 or bfloat16.
+    :param w: float32 vector ``(N,)``.
+    :param mask: per-row multiplier ``(m,)``.
+    :param rows: static number of leading rows to sweep (default m).
     :return: ``(w_orth, coeffs)`` with ``coeffs = c1 + c2`` of length m.
     """
-    m, N = V.shape
+    check_fused_eligible(V.dtype, w.dtype, interpret)
+    m = V.shape[0]
     rows = m if rows is None else int(rows)
-    if _vmem_block(N, rows, block_n, jnp.dtype(V.dtype).itemsize) is None:
-        raise ValueError(
-            f"no lane-friendly block divides N={N}; use the jnp path"
-        )
-    c1 = project_prefix(V, w, mask, rows=rows, block_n=block_n,
-                        interpret=interpret)
+    c1 = project_prefix(V, w, mask, rows=rows)
     w1, c2 = apply_project(V, w, c1, mask, rows=rows, block_n=block_n,
                            interpret=interpret)
-    wout = update_prefix(V, w1, c2, rows=rows, block_n=block_n,
-                         interpret=interpret)
-    return wout, c1 + c2
-
-
-def _prefix_call(kernel, V, vecs_in, coeff_in, mask, rows, bn, n_vec_out,
-                 n_coeff_out, interpret):
-    """Shared pallas_call plumbing for the prefix-sweep kernels: V's
-    BlockSpec reads only the leading ``rows`` rows of each column tile
-    (no materialized prefix copy), vectors ride (1, bn) tiles,
-    coefficients live whole in VMEM."""
-    m, N = V.shape
-    n_tiles = N // bn
-    vec_spec = pl.BlockSpec((1, bn), lambda j: (jnp.int32(0), j),
-                            memory_space=pltpu.VMEM)
-    coeff_spec = pl.BlockSpec(
-        (rows, 1), lambda j: (jnp.int32(0), jnp.int32(0)),
-        memory_space=pltpu.VMEM,
-    )
-    in_specs = [
-        pl.BlockSpec((rows, bn), lambda j: (jnp.int32(0), j),
-                     memory_space=pltpu.VMEM)
-    ]
-    args = [V]
-    for v in vecs_in:
-        in_specs.append(vec_spec)
-        args.append(v[None, :])
-    for c in coeff_in:
-        in_specs.append(coeff_spec)
-        args.append(c)
-    if mask is not None:
-        in_specs.append(coeff_spec)
-        args.append(mask)
-    dtype = vecs_in[0].dtype
-    out_specs = [vec_spec] * n_vec_out + [coeff_spec] * n_coeff_out
-    out_shape = [jax.ShapeDtypeStruct((1, N), dtype)] * n_vec_out + [
-        jax.ShapeDtypeStruct((rows, 1), dtype)
-    ] * n_coeff_out
-    scratch = [pltpu.VMEM((rows, 1), dtype)] * n_coeff_out
-    if len(out_specs) == 1:
-        out_specs, out_shape = out_specs[0], out_shape[0]
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(*args)
-    return out
-
-
-@functools.partial(
-    jax.jit, static_argnames=("rows", "block_n", "interpret")
-)
-def project_prefix(V, w, mask, *, rows=None, block_n=32768,
-                   interpret=False):
-    """One masked projection sweep over the leading ``rows`` basis rows:
-    ``c = (V[:rows]^* w) * mask[:rows]`` in a single HBM pass, no
-    update.  Returns ``c`` padded to length m."""
-    m, N = V.shape
-    rows = m if rows is None else int(rows)
-    bn = _vmem_block(N, rows, block_n, jnp.dtype(V.dtype).itemsize)
-    if bn is None:
-        raise ValueError(
-            f"no lane-friendly block divides N={N}; use the jnp path"
-        )
-    maskr = mask[:rows, None].astype(
-        jnp.result_type(V.dtype, jnp.float32)
-    )
-    c = _prefix_call(
-        _project_prefix_kernel, V, [w], [], maskr, rows, bn, 0, 1,
-        interpret,
-    )[:, 0]
-    if rows < m:
-        c = jnp.pad(c, (0, m - rows))
-    return c
-
-
-@functools.partial(
-    jax.jit, static_argnames=("rows", "block_n", "interpret")
-)
-def apply_project(V, w, c, mask, *, rows=None, block_n=32768,
-                  interpret=False):
-    """Fused update+project in ONE HBM sweep of the ``rows`` prefix:
-    ``w1 = w - c[:rows]^T V[:rows]`` and
-    ``c2 = (V[:rows]^* w1) * mask[:rows]``.
-
-    The middle sweep of the sharded fused CGS2: each slab is VMEM-
-    resident once and used for both the subtraction and the second-pass
-    projection.  Returns ``(w1, c2)`` with ``c2`` padded to m."""
-    m, N = V.shape
-    rows = m if rows is None else int(rows)
-    bn = _vmem_block(N, rows, block_n, jnp.dtype(V.dtype).itemsize)
-    if bn is None:
-        raise ValueError(
-            f"no lane-friendly block divides N={N}; use the jnp path"
-        )
-    maskr = mask[:rows, None].astype(
-        jnp.result_type(V.dtype, jnp.float32)
-    )
-    w1, c2 = _prefix_call(
-        _apply_project_kernel, V, [w], [c[:rows, None]], maskr, rows, bn,
-        1, 1, interpret,
-    )
-    c2 = c2[:, 0]
-    if rows < m:
-        c2 = jnp.pad(c2, (0, m - rows))
-    return w1[0], c2
-
-
-@functools.partial(
-    jax.jit, static_argnames=("rows", "block_n", "interpret")
-)
-def update_prefix(V, w, c, *, rows=None, block_n=32768, interpret=False):
-    """Final sweep: ``w - c[:rows]^T V[:rows]`` in one HBM pass of the
-    prefix (no materialized prefix copy)."""
-    m, N = V.shape
-    rows = m if rows is None else int(rows)
-    bn = _vmem_block(N, rows, block_n, jnp.dtype(V.dtype).itemsize)
-    if bn is None:
-        raise ValueError(
-            f"no lane-friendly block divides N={N}; use the jnp path"
-        )
-    out = _prefix_call(
-        _update_kernel, V, [w], [c[:rows, None]], None, rows, bn, 1, 0,
-        interpret,
-    )
-    return out[0]
+    return update_prefix(V, w1, c2, rows=rows), c1 + c2
 
 
 def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, axis_name=None,
-                       block_n=32768, interpret=None):
-    """Multi-device fused CGS2: three LOCAL HBM sweeps per shard + two
-    ICI all-reduces.
+                       block_n=None, interpret=False):
+    """Multi-device fused CGS2: three LOCAL sweeps per shard and two
+    all-reduces of the (rows,)-sized coefficients.
 
-    The basis ``V`` is column-sharded over the mesh axis ((m, N) with N
-    split); each device runs the prefix-sweep Pallas kernels on its
-    shard and only the (rows,)-sized coefficient vectors cross the
-    mesh:
+    The basis ``V`` is column-sharded over the mesh axis, so each device
+    runs the three local steps of :func:`cgs2_fused` on its shard with a
+    ``psum`` after each projection.  Against batched CGS2 under GSPMD (4
+    sweeps, 2 sync points) this saves one basis sweep per iteration at
+    the same sync count; against ``cgs2_1r`` (1 sync point, 3 full
+    sweeps) it trades two extra round trips for prefix-sized sweeps.
+    ``ortho='auto'`` in :mod:`krypy_tpu.functional.gmres` prices the two
+    through :mod:`krypy_tpu.functional.policy`.
 
-    1. :func:`project_prefix` -- local first-pass partials, ``psum``;
-    2. :func:`apply_project` -- the fused update+second-projection
-       sweep (the slab is read once and used twice), ``psum``;
-    3. :func:`update_prefix` -- apply the reduced second-pass
-       coefficients.
-
-    Compared with batched CGS2 under GSPMD (4 sweeps, 2 sync points)
-    this trades nothing on latency and saves a full basis sweep of HBM
-    traffic per iteration; compared with ``cgs2_1r`` (1 sync point,
-    but a wider fused contraction) it wins when the LOCAL shard is
-    bandwidth-bound rather than latency-bound -- the ``ortho='auto'``
-    policy in :mod:`krypy_tpu.functional.gmres` picks by sweep-size
-    estimate.
-
-    Same contract as :func:`cgs2_fused`: Euclidean inner product, no
-    dual basis (with distinct project/update bases the fusion saves no
-    traffic -- project reads V, update reads P, so every scheme pays
-    the same four slab-reads), real dtypes on a real TPU backend
-    (Mosaic has no complex or f64 lowering; CPU interpret mode takes
-    any dtype).
+    Same contract as :func:`cgs2_fused`; N must divide over the mesh.
     """
+    check_fused_eligible(V.dtype, w.dtype, interpret)
     axis_name = mesh.axis_names[0] if axis_name is None else axis_name
     m, N = V.shape
     rows = m if rows is None else int(rows)
@@ -390,102 +212,27 @@ def cgs2_fused_sharded(V, w, mask, *, mesh, rows=None, axis_name=None,
     if N % n_dev != 0:
         raise ValueError(
             f"N={N} must divide over the mesh size {n_dev} for the "
-            "sharded fused path (use ortho='cgs2' otherwise)"
+            "sharded fused path (use ortho='cgs2_1r' otherwise)"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     P = jax.sharding.PartitionSpec
 
     def local(V_loc, w_loc, maskv):
-        c1p = project_prefix(
-            V_loc, w_loc, maskv, rows=rows, block_n=block_n,
-            interpret=interpret,
+        c1 = jax.lax.psum(
+            project_prefix(V_loc, w_loc, maskv, rows=rows), axis_name
         )
-        c1 = jax.lax.psum(c1p, axis_name)
         w1_loc, c2p = apply_project(
             V_loc, w_loc, c1, maskv, rows=rows, block_n=block_n,
             interpret=interpret,
         )
         c2 = jax.lax.psum(c2p, axis_name)
-        w2_loc = update_prefix(
-            V_loc, w1_loc, c2, rows=rows, block_n=block_n,
-            interpret=interpret,
-        )
-        return w2_loc, c1 + c2
+        return update_prefix(V_loc, w1_loc, c2, rows=rows), c1 + c2
 
     # check_vma=False: pallas_call's out_shape carries no varying-mesh-
     # axes annotation, which the default check rejects
-    w2, coeffs = jax.shard_map(
+    return jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(None, axis_name), P(axis_name), P()),
         out_specs=(P(axis_name), P()),
         check_vma=False,
     )(V, w, mask)
-    return w2, coeffs
-
-
-@functools.partial(jax.jit, static_argnames=("block_n", "interpret"))
-def cgs_project(V, w, mask, basis=None, *, block_n=16384, interpret=False):
-    """One classical Gram-Schmidt projection pass.
-
-    :param V: basis rows, shape ``(m, N)``.
-    :param w: vector to orthogonalize, shape ``(N,)``.
-    :param mask: per-row multiplier, shape ``(m,)`` (1.0 for active basis
-      rows, 0.0 beyond the current iteration).
-    :param basis: rows to subtract along (default ``V``; pass the dual
-      basis P when a preconditioner M maintains ``V = M P``).
-    :param block_n: column-tile upper bound (VMEM-aware; two slabs --
-      V and the dual basis -- are in flight per step).
-    :return: ``(w_orth, coeffs)``.
-    """
-    B = V if basis is None else basis
-    m, N = V.shape
-    block_n = _vmem_block(
-        N, 2 * m, block_n, jnp.dtype(V.dtype).itemsize
-    ) or 128
-    if N % block_n != 0:
-        # fall back to a lane-aligned divisor
-        block_n = min(block_n, N)
-        while N % block_n != 0:
-            block_n //= 2
-        block_n = max(block_n, 1)
-    n_tiles = N // block_n
-
-    w2 = w[None, :]
-    mask2 = mask[:, None].astype(jnp.result_type(V.dtype, jnp.float32))
-
-    grid = (2, n_tiles)
-    wout, coeffs = pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (m, block_n), lambda p, j: (jnp.int32(0), j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (m, block_n), lambda p, j: (jnp.int32(0), j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, block_n), lambda p, j: (jnp.int32(0), j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (m, 1), lambda p, j: (jnp.int32(0), jnp.int32(0)), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, block_n), lambda p, j: (jnp.int32(0), j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (m, 1), lambda p, j: (jnp.int32(0), jnp.int32(0)), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, N), w.dtype),
-            jax.ShapeDtypeStruct((m, 1), w.dtype),
-        ],
-        scratch_shapes=[pltpu.VMEM((m, 1), w.dtype)],
-        interpret=interpret,
-    )(V, B, w2, mask2)
-    return wout[0], coeffs[:, 0]

@@ -1,19 +1,22 @@
-"""TPU-native operator gallery.
+"""Operator gallery.
 
 Matrix-free matvecs for the benchmark/test problems of BASELINE.md (the
 reference has no operator gallery; its extensibility hook is the
-LinearOperator protocol, krypy/utils.py:1365 -- these are the TPU-first
-equivalents).  All operators are pure functions on 1-D ``(N,)`` vectors:
+LinearOperator protocol, krypy/utils.py:1365 -- these are the
+compiled-array equivalents).  All operators are pure functions on 1-D
+``(N,)`` vectors:
 
 * stencils are expressed as pad/slice/add pipelines that XLA fuses into a
-  single VPU pass, and that GSPMD turns into halo exchanges when the grid
-  axis is sharded over a mesh;
+  single elementwise pass; on an active mesh they split their grid by
+  rows, and GSPMD turns the shifts into halo exchanges;
 * diagonal operators are elementwise multiplies;
 * explicit sparse matrices use ``jax.experimental.sparse`` (BCOO).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 __all__ = [
     "diagonal",
@@ -34,10 +37,6 @@ __all__ = [
     "block_jacobi_preconditioner",
     "dia_from_scipy",
     "spai_preconditioner",
-    "pad_cols_width",
-    "pad_rows_width",
-    "pad_grid_vec",
-    "unpad_grid_vec",
 ]
 
 
@@ -71,6 +70,55 @@ def readme_diag(n=100):
     return diagonal(d)
 
 
+def _split(a, spec):
+    """Constrain ``a`` to ``spec`` over the active mesh's axis (no-op
+    without a mesh)."""
+    from .parallel import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        return a
+    return jax.lax.with_sharding_constraint(
+        a, NamedSharding(mesh, P(*(mesh.axis_names[0] if s else None
+                                   for s in spec)))
+    )
+
+
+def _level_on_mesh(u):
+    """Multigrid level ``u`` split by rows where that pays, replicated
+    otherwise.  Split d ways, a smoothing sweep (3 grid vectors of
+    traffic) saves ``3 (1 - 1/d) u.size`` elements per card, and each of
+    its halo exchanges costs about one sync; a level whose saving is
+    below one sync (:mod:`~krypy_tpu.functional.policy`'s measured
+    prices) runs whole on every card, so the coarse levels' many small
+    sweeps need no communication at all.  A level's input and its
+    coarse correction are both pinned: GSPMD does not carry an input
+    pin through the level by itself."""
+    from .functional import policy
+    from .parallel import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        return u
+    d = mesh.devices.size
+    saved = 3 * policy.sweep_s(u.size * (d - 1) / d, u.dtype.itemsize)
+    return _split(u, (1, 0) if saved > policy.sync_s() else (0, 0))
+
+
+def _to_grid(x, nx, ny):
+    """``(N,) -> (nx, ny)``, split by grid rows on a mesh.  A flat
+    vector whose even split does not fall on row boundaries (any odd N)
+    cannot carry its sharding through the reshape, and GSPMD would
+    replicate the whole solve; pinning the rows makes it move the data
+    instead."""
+    return _split(x.reshape(nx, ny), (1, 0))
+
+
+def _to_flat(u):
+    """``(nx, ny) -> (N,)``, split along N on a mesh."""
+    return _split(u.reshape(-1), (1,))
+
+
 def _lap1d_apply(u, h2):
     """1-D central second difference with Dirichlet boundaries."""
     left = jnp.pad(u[:-1], (1, 0))
@@ -90,149 +138,51 @@ def poisson_1d(n):
     return matvec
 
 
-def poisson_2d(nx, ny=None, impl="jnp", mesh=None, pad_cols=False):
+def poisson_2d(nx, ny=None):
     """5-point Laplacian on an nx x ny interior grid of the unit square,
     Dirichlet boundaries; SPD, N = nx*ny.
 
-    ``impl="jnp"`` (default) applies the stencil as shifted adds -- one
-    fused pass, shardable over a mesh (GSPMD inserts halo collectives).
-    ``impl="pallas"`` uses the pipelined Pallas kernel (3x faster than the
-    XLA lowering on TPU v5e at 1M dof; nx a multiple of 8).  With
-    ``mesh=`` the Pallas kernel runs per shard under ``shard_map`` with an
-    explicit one-row ``ppermute`` halo exchange
-    (:func:`krypy_tpu.kernels.stencil.stencil5_sharded`); nx must then be
-    divisible by the mesh size.
+    The stencil is applied as shifted adds, which XLA fuses into one
+    pass over the grid; on a mesh GSPMD exchanges the halo rows.
     """
     ny = nx if ny is None else ny
     hx2 = (1.0 / (nx + 1)) ** 2
     hy2 = (1.0 / (ny + 1)) ** 2
 
-    if pad_cols:
-        # lane-padded layout (see the padded-grid block below): matvec
-        # on (nx*ny_pad,) vectors whose pad columns are zero
-        if mesh is not None:
-            raise ValueError("pad_cols does not compose with mesh= yet")
-        coeffs = (2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2,
-                  -1.0 / hy2, -1.0 / hy2)
-        matvec, nx_pad, ny_pad = _padded_stencil_matvec(
-            nx, ny, coeffs, impl
-        )
-        Np = nx_pad * ny_pad
-        matvec.shape = (Np, Np)
-        matvec.grid = (nx, ny)
-        matvec.nx_pad, matvec.ny_pad = nx_pad, ny_pad
-        # pad diagonal entries are 1 so diag-based preconditioners stay
-        # finite (they multiply zeros anyway)
-        dg = jnp.full((nx_pad, ny_pad), 1.0).at[:nx, :ny].set(
-            2.0 / hx2 + 2.0 / hy2
-        )
-        matvec.diag = dg.reshape(-1)
-        return matvec
-
-    if impl == "pallas" and mesh is not None:
-        from .kernels.stencil import stencil5_sharded
-
-        coeffs = (2.0 / hx2 + 2.0 / hy2, -1.0 / hx2, -1.0 / hx2,
-                  -1.0 / hy2, -1.0 / hy2)
-
-        def matvec(x):
-            return stencil5_sharded(
-                x, nx=nx, ny=ny, coeffs=coeffs, mesh=mesh
-            )
-    elif impl == "pallas":
-        from .kernels.stencil import laplacian_2d_pipelined
-
-        def matvec(x):
-            return laplacian_2d_pipelined(
-                x, nx=nx, ny=ny, hx2=hx2, hy2=hy2
-            )
-    elif impl == "jnp":
-        def matvec(x):
-            u = x.reshape(nx, ny)
-            ux = (2.0 * u
-                  - jnp.pad(u[:-1, :], ((1, 0), (0, 0)))
-                  - jnp.pad(u[1:, :], ((0, 1), (0, 0)))) / hx2
-            uy = (2.0 * u
-                  - jnp.pad(u[:, :-1], ((0, 0), (1, 0)))
-                  - jnp.pad(u[:, 1:], ((0, 0), (0, 1)))) / hy2
-            return (ux + uy).reshape(-1)
-    else:
-        raise ValueError(f"unknown impl {impl}")
+    def matvec(x):
+        u = _to_grid(x, nx, ny)
+        ux = (2.0 * u
+              - jnp.pad(u[:-1, :], ((1, 0), (0, 0)))
+              - jnp.pad(u[1:, :], ((0, 1), (0, 0)))) / hx2
+        uy = (2.0 * u
+              - jnp.pad(u[:, :-1], ((0, 0), (1, 0)))
+              - jnp.pad(u[:, 1:], ((0, 0), (0, 1)))) / hy2
+        return _to_flat(ux + uy)
 
     matvec.shape = (nx * ny, nx * ny)
     matvec.diag = jnp.full(nx * ny, 2.0 / hx2 + 2.0 / hy2)
     return matvec
 
 
-def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
-                            impl="jnp", mesh=None, pad_cols=False):
+def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0):
     """Nonsymmetric convection-diffusion operator
     ``-eps * Lap(u) + w . grad(u)`` with first-order upwind convection;
     the BASELINE config-3 operator.
-
-    ``impl="pallas"``: the whole operator is ONE fused 5-point Pallas
-    stencil (diffusion + upwind coefficients combined), reading and
-    writing each grid element once.  ``mesh=`` runs it per shard with a
-    ``ppermute`` halo exchange (nx divisible by the mesh size).
     """
     ny = nx if ny is None else ny
     hx = 1.0 / (nx + 1)
     hy = 1.0 / (ny + 1)
     hx2, hy2 = hx * hx, hy * hy
     wx, wy = wind
+    lap = poisson_2d(nx, ny)
 
-    if pad_cols:
-        if mesh is not None:
-            raise ValueError("pad_cols does not compose with mesh= yet")
-        coeffs = (
-            eps * (2.0 / hx2 + 2.0 / hy2) + wx / hx + wy / hy,
-            -eps / hx2 - wx / hx,
-            -eps / hx2,
-            -eps / hy2 - wy / hy,
-            -eps / hy2,
-        )
-        matvec, nx_pad, ny_pad = _padded_stencil_matvec(
-            nx, ny, coeffs, impl
-        )
-        Np = nx_pad * ny_pad
-        matvec.shape = (Np, Np)
-        matvec.grid = (nx, ny)
-        matvec.nx_pad, matvec.ny_pad = nx_pad, ny_pad
-        dg = jnp.full((nx_pad, ny_pad), 1.0).at[:nx, :ny].set(coeffs[0])
-        matvec.diag = dg.reshape(-1)
-        return matvec
-
-    if impl == "pallas":
-        from .kernels.stencil import stencil5_pipelined, stencil5_sharded
-
-        coeffs = (
-            eps * (2.0 / hx2 + 2.0 / hy2) + wx / hx + wy / hy,
-            -eps / hx2 - wx / hx,
-            -eps / hx2,
-            -eps / hy2 - wy / hy,
-            -eps / hy2,
-        )
-
-        if mesh is not None:
-            def matvec(x):
-                return stencil5_sharded(
-                    x, nx=nx, ny=ny, coeffs=coeffs, mesh=mesh
-                )
-        else:
-            def matvec(x):
-                return stencil5_pipelined(x, nx=nx, ny=ny, coeffs=coeffs)
-    elif impl == "jnp":
-        lap = poisson_2d(nx, ny)
-
-        def matvec(x):
-            u = x.reshape(nx, ny)
-            # upwind differences (wind components assumed non-negative)
-            dux = (u - jnp.pad(u[:-1, :], ((1, 0), (0, 0)))) / hx
-            duy = (u - jnp.pad(u[:, :-1], ((0, 0), (1, 0)))) / hy
-            conv = wx * dux + wy * duy
-            return eps * lap(x) + conv.reshape(-1)
-    else:
-        raise ValueError(f"unknown impl {impl}")
+    def matvec(x):
+        u = _to_grid(x, nx, ny)
+        # upwind differences (wind components assumed non-negative)
+        dux = (u - jnp.pad(u[:-1, :], ((1, 0), (0, 0)))) / hx
+        duy = (u - jnp.pad(u[:, :-1], ((0, 0), (1, 0)))) / hy
+        conv = wx * dux + wy * duy
+        return eps * lap(x) + _to_flat(conv)
 
     matvec.shape = (nx * ny, nx * ny)
     matvec.diag = (
@@ -241,39 +191,16 @@ def convection_diffusion_2d(nx, ny=None, wind=(1.0, 0.5), eps=1.0,
     return matvec
 
 
-def shifted_laplacian_2d(nx, ny=None, sigma=0.0, impl="jnp", mesh=None):
+def shifted_laplacian_2d(nx, ny=None, sigma=0.0):
     """Shifted Laplacian ``Lap - sigma I`` (indefinite for sigma inside
-    the spectrum); the BASELINE config-4 operator.  ``impl="pallas"``
-    fuses the shift into the 5-point Pallas stencil; ``mesh=`` shards it
-    with a ``ppermute`` halo exchange."""
+    the spectrum); the BASELINE config-4 operator."""
     ny = nx if ny is None else ny
     hx2 = (1.0 / (nx + 1)) ** 2
     hy2 = (1.0 / (ny + 1)) ** 2
+    lap = poisson_2d(nx, ny)
 
-    if impl == "pallas":
-        from .kernels.stencil import stencil5_pipelined, stencil5_sharded
-
-        coeffs = (
-            2.0 / hx2 + 2.0 / hy2 - sigma,
-            -1.0 / hx2,
-            -1.0 / hx2,
-            -1.0 / hy2,
-            -1.0 / hy2,
-        )
-
-        if mesh is not None:
-            def matvec(x):
-                return stencil5_sharded(
-                    x, nx=nx, ny=ny, coeffs=coeffs, mesh=mesh
-                )
-        else:
-            def matvec(x):
-                return stencil5_pipelined(x, nx=nx, ny=ny, coeffs=coeffs)
-    else:
-        lap = poisson_2d(nx, ny, impl=impl)
-
-        def matvec(x):
-            return lap(x) - sigma * x
+    def matvec(x):
+        return lap(x) - sigma * x
 
     matvec.shape = (nx * ny, nx * ny)
     matvec.diag = (2.0 / hx2 + 2.0 / hy2 - sigma) * jnp.ones(nx * ny)
@@ -301,7 +228,7 @@ def chebyshev_preconditioner(op, degree=8, lmin=None, lmax=None):
     SPD operator with spectrum in ``[lmin, lmax]``.
 
     Each application runs ``degree`` operator applications with no
-    sequential inner products -- the TPU-native preconditioner: it trades
+    sequential inner products -- the accelerator-native preconditioner: it trades
     (cheap, fused) matvec flops for (expensive, latency-bound) Krylov
     iterations, roughly dividing the outer CG iteration count by
     ``degree``.  The standard Chebyshev semi-iteration recurrence is used
@@ -357,7 +284,7 @@ def gmres_polynomial_preconditioner(
     combined in real arithmetic (after Loe & Morgan, "Toward efficient
     polynomial preconditioning for GMRES", 2021).
 
-    TPU-native rationale (same as :func:`chebyshev_preconditioner`, but
+    accelerator-native rationale (same as :func:`chebyshev_preconditioner`, but
     for NONSYMMETRIC operators where a Chebyshev interval does not
     apply): one application is ``degree`` operator applications and ZERO
     inner products -- no reductions, no sequential latency-bound scalar
@@ -497,12 +424,8 @@ def _lap2d_grid(u, h2):
 def _restrict_fw_1d(u, axis):
     """Vertex-centered full weighting along one axis (``n = 2 nc + 1``):
     ``c_j = (u_{2j} + 2 u_{2j+1} + u_{2j+2}) / 4`` as three strided
-    slices.
-
-    NB: the separable slice form replaced a 3x3 ``lax.conv`` here --
-    measured 2.3x faster at 4095^2 on TPU v5e, and exact: XLA lowers the
-    single-channel f32 conv through reduced-precision passes (~2e-3
-    absolute error on O(1) data)."""
+    slices (separable, so no convolution and no reduced-precision
+    conv passes)."""
     u = jnp.moveaxis(u, axis, 0)
     out = (
         0.25 * u[0:-2:2] + 0.5 * u[1:-1:2] + 0.25 * u[2::2]
@@ -536,113 +459,9 @@ def _prolong_bilinear(c, nx):
     return _prolong_bilinear_1d(_prolong_bilinear_1d(c, 0), 1)
 
 
-# ---------------------------------------------------------------------------
-# grid-padded layout: the TPU-aligned formulation of lane-odd grids
-# ---------------------------------------------------------------------------
-# TPU vector lanes are 128 wide; a +-1 column shift on a lane-UNaligned
-# grid (e.g. the 2^k-1 multigrid / north-star grids) defeats both XLA's
-# fused stencil lowering and Mosaic's tiling (measured 39 GB/s vs the
-# ~350 GB/s copy ceiling at 8191^2 -- benchmarks/RESULTS_r5.md).
-# The padded layout stores an (nx, ny) Dirichlet grid inside an
-# (nx_pad, ny_pad) buffer -- rows padded to a multiple of 8 (sublanes,
-# so Pallas blocks divide the buffer with NO per-call pad/slice
-# copies), columns to a multiple of 128 (lanes) -- with the pad
-# rows/columns kept EXACTLY zero: the first pad row/column doubles as
-# the Dirichlet ghost, so stencils on the padded buffer reproduce the
-# unpadded arithmetic on the logical region while every row is
-# lane-aligned.  The flat padded length is 128-divisible, which also
-# makes the padded vectors eligible for the fused Pallas
-# orthogonalization kernels (kernels/orthogonalize.py).
-
-
-def pad_cols_width(ny):
-    """Smallest multiple of 128 (the TPU lane count) >= ``ny``."""
-    return -(-ny // 128) * 128
-
-
-def pad_rows_width(nx):
-    """Smallest multiple of 8 (the f32 sublane count) >= ``nx``."""
-    return -(-nx // 8) * 8
-
-
-def pad_grid_vec(x, nx, ny):
-    """Embed a flat ``(nx*ny,)`` grid vector into the grid-padded
-    ``(pad_rows_width(nx) * pad_cols_width(ny),)`` layout (pads zero)."""
-    nxp, nyp = pad_rows_width(nx), pad_cols_width(ny)
-    if (nxp, nyp) == (nx, ny):
-        return x
-    u = x.reshape(nx, ny)
-    return jnp.pad(u, ((0, nxp - nx), (0, nyp - ny))).reshape(-1)
-
-
-def unpad_grid_vec(x, nx, ny):
-    """Extract the logical ``(nx*ny,)`` vector from the grid-padded
-    layout (inverse of :func:`pad_grid_vec`)."""
-    nxp, nyp = pad_rows_width(nx), pad_cols_width(ny)
-    if (nxp, nyp) == (nx, ny):
-        return x
-    return x.reshape(nxp, nyp)[:nx, :ny].reshape(-1)
-
-
-def _stencil5_padded_jnp(u, coeffs, nrows, ncols):
-    """jnp lowering of the 5-point Dirichlet stencil on a grid-padded
-    array with ``nrows x ncols`` logical region: column shifts wrap
-    through the zero pad column (== the Dirichlet ghost), row shifts
-    read the zero pad row, and the output pads are re-zeroed so the
-    invariant survives repeated applications.  Used on CPU/f64 where
-    the Pallas kernel (:func:`krypy_tpu.kernels.stencil.stencil5_affine`)
-    is unavailable."""
-    cc, cu, cd, cl, cr = coeffs
-    R, P = u.shape
-    up = jnp.pad(u[:-1, :], ((1, 0), (0, 0)))
-    dn = jnp.pad(u[1:, :], ((0, 1), (0, 0)))
-    if P > ncols:
-        lf = jnp.roll(u, 1, axis=1)
-        rt = jnp.roll(u, -1, axis=1)
-    else:
-        lf = jnp.pad(u[:, :-1], ((0, 0), (1, 0)))
-        rt = jnp.pad(u[:, 1:], ((0, 0), (0, 1)))
-    # grouped difference form -- cancellation before rounding, matching
-    # the Pallas kernel's arithmetic (see stencil5_affine)
-    out = (-cu * (u - up) - cd * (u - dn) - cl * (u - lf)
-           - cr * (u - rt))
-    e = cc + cu + cd + cl + cr
-    if e != 0.0:
-        out = out + e * u
-    if P > ncols:
-        out = out * (jnp.arange(P) < ncols).astype(out.dtype)[None, :]
-    if R > nrows:
-        out = out * (jnp.arange(R) < nrows).astype(out.dtype)[:, None]
-    return out
-
-
-def _padded_stencil_matvec(nx, ny, coeffs, impl):
-    """Shared grid-padded matvec builder: Pallas on f32/bf16 input
-    (the roofline path), jnp fallback on f64 (no Mosaic f64)."""
-    nx_pad, ny_pad = pad_rows_width(nx), pad_cols_width(ny)
-    coeffs = tuple(float(c) for c in coeffs)
-
-    def matvec(x):
-        use_pallas = impl == "pallas" and x.dtype in (
-            jnp.float32, jnp.bfloat16
-        )
-        if use_pallas:
-            from .kernels.stencil import stencil5_affine
-
-            return stencil5_affine(
-                x, nx=nx_pad, ny=ny_pad, coeffs=coeffs, ncols=ny,
-                nrows=nx,
-            )
-        return _stencil5_padded_jnp(
-            x.reshape(nx_pad, ny_pad), coeffs, nx, ny
-        ).reshape(-1)
-
-    return matvec, nx_pad, ny_pad
-
-
 def _dst1(u, axis):
     """DST-I along ``axis`` via the odd-extension FFT (length 2(n+1));
-    the TPU-native path to spectral Poisson solves."""
+    the accelerator-native path to spectral Poisson solves."""
     u = jnp.moveaxis(u, axis, -1)
     n = u.shape[-1]
     z = jnp.concatenate(
@@ -709,7 +528,7 @@ def ssor_poisson_preconditioner(nx, ny=None, omega=1.0, sweeps=1):
     (forward red->black, backward black->red) of the checkerboard
     coloring: each color's update is a fully vectorized masked stencil
     operation, so the classic sequential triangular solve becomes four
-    dense grid updates per sweep -- the TPU-viable form of Gauss-Seidel
+    dense grid updates per sweep -- the vectorized form of Gauss-Seidel
     (lexicographic GS is a serial dependency chain and is NOT
     implemented, by design).  The symmetric sweep order makes M SPD for
     the symmetric operator, so it is a valid CG preconditioner; it is
@@ -734,7 +553,7 @@ def ssor_poisson_preconditioner(nx, ny=None, omega=1.0, sweeps=1):
         return _rb_gs_half(u, r, mask, diag, omega, apply_A)
 
     def matvec(rv):
-        r = rv.reshape(nx, ny)
+        r = _to_grid(rv, nx, ny)
         u = jnp.zeros_like(r)
         red_m = red.astype(bool)
         for _ in range(int(sweeps)):
@@ -742,201 +561,15 @@ def ssor_poisson_preconditioner(nx, ny=None, omega=1.0, sweeps=1):
             u = color_update(u, r, ~red_m)        # forward: black
             u = color_update(u, r, ~red_m)        # backward: black
             u = color_update(u, r, red_m)         # backward: red
-        return u.reshape(-1)
+        return _to_flat(u)
 
     matvec.shape = (nx * ny, nx * ny)
     return matvec
 
 
-def _multigrid_padded(nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps,
-                      impl, scale=1.0):
-    """Lane-padded V-cycle (see the padded-grid block above): every
-    level lives in an ``(n, pad128(n))`` buffer, so the fine-level
-    smoother/residual run as fused Pallas affine-stencil kernels
-    (``impl="pallas"``, 2-3 HBM passes each) instead of the lane-
-    misaligned jnp chains -- the single biggest cost of the 67M-dof
-    north-star V-cycle (benchmarks/RESULTS_r5.md: 48.4 ms, stencils at
-    39 GB/s).  Damped-Jacobi smoothing only (the padded production
-    configuration).  ``scale`` is folded into the FINAL post-smoothing
-    sweep (s*(u + w*(r - A u)) is the same affine kernel with
-    alpha=s, beta=s*w, coeffs scaled), so the equilibration multiply
-    the caller would otherwise apply costs zero extra HBM passes."""
-    from jax import lax
-
-    def step_fn(n, R, P, h2, dtype_is_f32, s=1.0):
-        diag = 4.0 / h2
-        lapc = (4.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2)
-        w = omega / diag
-        use_pallas = impl == "pallas" and n >= 256 and dtype_is_f32
-        if use_pallas:
-            from .kernels.stencil import stencil5_affine
-
-            # s*(u + w*(r - A u)) as ONE kernel: alpha*u + beta*r +
-            # S(u) with S = -s*w*A, alpha=s, beta=s*w
-            sc = tuple(-s * w * c for c in lapc)
-            rc = tuple(-c for c in lapc)
-            # two damped-Jacobi sweeps FROM ZERO collapse to a single
-            # stencil on r: u2 = w r + w (r - A (w r)) = 2w r - w^2 A r
-            # -- one g-less kernel (2 HBM passes) instead of the
-            # elementwise w*r plus a full step (5 passes)
-            pc = tuple(-w * w * c for c in lapc)
-
-            def step(u, r):
-                return stencil5_affine(
-                    u.reshape(-1), r.reshape(-1), nx=R, ny=P,
-                    coeffs=sc, ncols=n, nrows=n, alpha=s, beta=s * w,
-                ).reshape(R, P)
-
-            def residual(u, r):
-                return stencil5_affine(
-                    u.reshape(-1), r.reshape(-1), nx=R, ny=P,
-                    coeffs=rc, ncols=n, nrows=n, beta=1.0,
-                ).reshape(R, P)
-
-            def presmooth2(r):
-                return stencil5_affine(
-                    r.reshape(-1), None, nx=R, ny=P,
-                    coeffs=pc, ncols=n, nrows=n, alpha=2.0 * w,
-                ).reshape(R, P)
-
-            from .kernels.stencil import stencil5_jacobi2
-
-            # a post-smoothing PAIR (optionally scale-folded on the
-            # second sweep) in ONE temporally-blocked kernel: ~4 HBM
-            # passes instead of the ~7 of two chained step() kernels
-            def step2(u, r, s2=1.0):
-                return stencil5_jacobi2(
-                    u.reshape(-1), r.reshape(-1), nx=R, ny=P,
-                    coeffs=lapc, w=w, s=s2, ncols=n, nrows=n,
-                ).reshape(R, P)
-
-            nc = (n - 1) // 2
-            if R % 16 == 0 and R // 2 == pad_rows_width(nc):
-                from .kernels.stencil import stencil5_resrestrict_rows
-
-                # residual + row restriction in ONE kernel (the fine
-                # residual never round-trips through HBM: ~2.5 passes
-                # vs 3 + ~2.3); columns restrict on the half-height
-                # intermediate in jnp
-                def resrestrict(u, r):
-                    half = stencil5_resrestrict_rows(
-                        u.reshape(-1), r.reshape(-1), nx=R, ny=P,
-                        coeffs=rc, ncols=n, nrows=n,
-                    ).reshape(R // 2, P)
-                    rl = half[:nc, :n]
-                    c = (0.25 * rl[:, 0:-2:2] + 0.5 * rl[:, 1:-1:2]
-                         + 0.25 * rl[:, 2::2])
-                    return jnp.pad(
-                        c, ((0, R // 2 - nc),
-                            (0, pad_cols_width(nc) - nc)),
-                    )
-            else:
-                resrestrict = None
-        else:
-            def step(u, r):
-                return s * (
-                    u + w * (r - _stencil5_padded_jnp(u, lapc, n, n))
-                ) if s != 1.0 else (
-                    u + w * (r - _stencil5_padded_jnp(u, lapc, n, n))
-                )
-
-            def residual(u, r):
-                return r - _stencil5_padded_jnp(u, lapc, n, n)
-
-            def presmooth2(r):
-                return (2.0 * w) * r - (w * w) * _stencil5_padded_jnp(
-                    r, lapc, n, n
-                )
-
-            resrestrict = None
-            step2 = None
-
-        return step, residual, w, presmooth2, resrestrict, step2
-
-    def smooth(u, r, step, k):
-        if k <= 0:
-            return u
-        if k <= 4:
-            for _ in range(k):
-                u = step(u, r)
-            return u
-        return lax.fori_loop(0, k, lambda i, uu: step(uu, r), u)
-
-    def restrict_p(r, n):
-        nc = (n - 1) // 2
-        # row and column passes on the LOGICAL slice --
-        # slice-of-strided-slice folds statically, no copy materializes
-        rl = r[:n]
-        rl = 0.25 * rl[0:-2:2] + 0.5 * rl[1:-1:2] + 0.25 * rl[2::2]
-        rl = rl[:, :n]
-        c = (0.25 * rl[:, 0:-2:2] + 0.5 * rl[:, 1:-1:2]
-             + 0.25 * rl[:, 2::2])
-        return jnp.pad(c, ((0, pad_rows_width(nc) - nc),
-                           (0, pad_cols_width(nc) - nc)))
-
-    def prolong_p(c, nc, R, P):
-        n = 2 * nc + 1
-        out = _prolong_bilinear_1d(c[:nc, :nc], 1)    # (nc, n)
-        out = _prolong_bilinear_1d(out, 0)            # (n, n)
-        return jnp.pad(out, ((0, R - n), (0, P - n)))
-
-    def vcycle(r, n, top=False):
-        R, P = r.shape
-        is_f32 = r.dtype == jnp.float32
-        h2 = (1.0 / (n + 1)) ** 2
-        step, residual, w, presmooth2, resrestrict, step2 = step_fn(
-            n, R, P, h2, is_f32
-        )
-
-        if n <= coarsest:
-            # first sweep from u=0 is the elementwise u1 = w*r
-            u = w * r
-            u = smooth(u, r, step, coarse_sweeps - 1)
-            return scale * u if (top and scale != 1.0) else u
-
-        # sweeps 1+2 from u=0 collapse into ONE stencil pass on r
-        # (u2 = 2w r - w^2 A r); sweep 1 alone is the elementwise w*r
-        u = presmooth2(r) if nu_pre >= 2 else w * r
-        u = smooth(u, r, step, nu_pre - 2)
-        if resrestrict is not None:
-            rc_grid = resrestrict(u, r)
-        else:
-            rc_grid = restrict_p(residual(u, r), n)
-        ec = vcycle(rc_grid, (n - 1) // 2)
-        u = u + prolong_p(ec, (n - 1) // 2, R, P)
-        s_fold = scale if (top and scale != 1.0) else 1.0
-        if step2 is not None and nu_post >= 2:
-            # post-smoothing runs as temporally-blocked PAIRS (one
-            # kernel per pair, ~4 HBM passes vs ~7 chained); the
-            # equilibration scale folds into the last pair's second
-            # sweep.  Odd sweep counts take the single leftover first.
-            u = smooth(u, r, step, nu_post % 2)
-            for _ in range(nu_post // 2 - 1):
-                u = step2(u, r)
-            return step2(u, r, s_fold)
-        if s_fold != 1.0 and nu_post >= 1:
-            # fold the caller's equilibration scale into the final sweep
-            u = smooth(u, r, step, nu_post - 1)
-            step_s = step_fn(n, R, P, h2, is_f32, s=s_fold)[0]
-            return step_s(u, r)
-        u = smooth(u, r, step, nu_post)
-        return s_fold * u if s_fold != 1.0 else u
-
-    nx_pad, ny_pad = pad_rows_width(nx), pad_cols_width(nx)
-
-    def matvec(x):
-        return vcycle(x.reshape(nx_pad, ny_pad), nx, top=True).reshape(-1)
-
-    matvec.shape = (nx_pad * ny_pad, nx_pad * ny_pad)
-    matvec.grid = (nx, nx)
-    matvec.nx_pad, matvec.ny_pad = nx_pad, ny_pad
-    return matvec
-
-
 def multigrid_poisson_preconditioner(
     nx, nu_pre=2, nu_post=2, omega=0.8, coarsest=7, coarse_sweeps=20,
-    coarse_solver=None, impl="jnp", smoother="jacobi", pad_cols=False,
-    scale=1.0,
+    coarse_solver=None, smoother="jacobi", scale=1.0,
 ):
     r"""Geometric multigrid V-cycle preconditioner for the 2-D Dirichlet
     Poisson operator -- the mesh-independent production preconditioner.
@@ -949,15 +582,12 @@ def multigrid_poisson_preconditioner(
     treats as the preconditioner matvec M ~= A^{-1}.
 
     (The reference has no preconditioner library -- preconditioners are
-    user-supplied operators; this is part of the TPU-native operator
-    gallery.)
+    user-supplied operators; this is part of the operator gallery.)
 
     :param scale: scalar multiplied into the V-cycle output (M becomes
       ``scale * V(r)``) -- for h^2-equilibrated systems where the caller
       would otherwise wrap the preconditioner in ``lambda r: M(r)/h2``.
-      On the ``pad_cols`` Pallas lane the scale is folded into the final
-      post-smoothing kernel (zero extra HBM passes); on the jnp lane XLA
-      fuses the multiply into the last sweep.
+      XLA fuses the multiply into the last sweep.
     :param smoother: ``"jacobi"`` (damped by ``omega``) or ``"rbgs"``
       (red-black Gauss-Seidel at ``omega = 1`` -- the ``omega``
       parameter applies to the Jacobi smoother only: two checkerboard
@@ -971,36 +601,15 @@ def multigrid_poisson_preconditioner(
         raise ValueError("multigrid requires nx = 2^k - 1")
     if smoother not in ("jacobi", "rbgs"):
         raise ValueError(f"unknown smoother {smoother!r}")
-    if pad_cols:
-        # lane-padded V-cycle: matvec on (nx*pad128(nx),) vectors
-        if smoother != "jacobi" or coarse_solver is not None:
-            raise ValueError(
-                "pad_cols multigrid supports the jacobi smoother with "
-                "the sweep coarse solve only"
-            )
-        return _multigrid_padded(
-            nx, nu_pre, nu_post, omega, coarsest, coarse_sweeps, impl,
-            scale=scale,
-        )
     if coarse_solver == "dst":
         coarse_solver = poisson_dst_solver(coarsest)
 
     def lap_grid(u, nx_l, h2):
-        """Level Laplacian: the Pallas stencil earns its call overhead on
-        fine grids; small levels stay on the fused jnp path."""
-        if impl == "pallas" and nx_l >= 256:
-            from .kernels.stencil import stencil5_pipelined
-
-            return stencil5_pipelined(
-                u.reshape(-1),
-                nx=nx_l,
-                ny=nx_l,
-                coeffs=(4.0 / h2, -1.0 / h2, -1.0 / h2, -1.0 / h2,
-                        -1.0 / h2),
-            ).reshape(nx_l, nx_l)
+        """Level Laplacian (one fused stencil pass)."""
         return _lap2d_grid(u, h2)
 
     def vcycle(r, nx_l):
+        r = _level_on_mesh(r)
         h2 = (1.0 / (nx_l + 1)) ** 2
         diag = 4.0 / h2
 
@@ -1064,22 +673,20 @@ def multigrid_poisson_preconditioner(
             u = smooth(jnp.zeros_like(r), nu_pre)
         else:
             # Jacobi sweeps 1+2 from u=0 collapse to one stencil pass:
-            # u2 = 2w r - w^2 A r (mirrors the padded lane, which saves
-            # 3 HBM passes per level this way; here XLA fuses most of
-            # the chain but the collapse still drops a full lap_grid)
+            # u2 = 2w r - w^2 A r (drops a full lap_grid)
             w = omega / diag
             u = smooth((2.0 * w) * r - (w * w) * lap_grid(r, nx_l, h2),
                        nu_pre - 2)
         res = r - lap_grid(u, nx_l, h2)
-        ec = vcycle(_restrict_fw(res), (nx_l - 1) // 2)
+        ec = _level_on_mesh(vcycle(_restrict_fw(res), (nx_l - 1) // 2))
         u = u + _prolong_bilinear(ec, nx_l)
         # reversed color order in post-smoothing keeps the cycle
         # symmetric (S_post = S_pre^T)
         return smooth(u, nu_post, reverse=True)
 
     def matvec(x):
-        r = x.reshape(nx, nx)
-        u = vcycle(r, nx).reshape(-1)
+        r = _to_grid(x, nx, nx)
+        u = _to_flat(vcycle(r, nx))
         return scale * u if scale != 1.0 else u
 
     matvec.shape = (nx * nx, nx * nx)
@@ -1177,19 +784,18 @@ def sparse_from_scipy(A):
 
 def dia_from_scipy(A, max_diags=512):
     r"""Convert a scipy sparse matrix into a DIAGONAL-format matvec --
-    the TPU-native sparse format for matrices with bounded bandwidth.
+    the accelerator-native sparse format for matrices with bounded bandwidth.
 
-    Gather-based sparse formats are pathologically slow on TPU (no
-    hardware gather): at 65k dof / 1.2M nnz the BCOO matvec measured
-    18.5 ms and ELL (one fused gather) 14.5 ms.  DIA stores one dense
-    vector per occupied diagonal and applies
+    Gather-based sparse formats pay an index read and an irregular
+    access per nonzero.  DIA stores one dense vector per occupied
+    diagonal and applies
 
     .. math:: y = \sum_k \mathrm{roll}(d_k \odot x,\; -o_k)
 
-    -- one elementwise multiply + one lane shift per diagonal, ZERO
-    gathers: **362 us/matvec** on the same operator (51x), exact to the
-    last bit.  On a mesh the rolls lower to neighbor
-    ``collective-permute``s, not global collectives.
+    -- one elementwise multiply + one shift per diagonal, ZERO gathers,
+    exact to the last bit.  On a mesh the rolls lower to neighbor
+    ``collective-permute``s, not global collectives.  (ROADMAP item A6
+    measures BCOO, DIA and BCSR on the GPU.)
 
     Out-of-band storage positions are zero-filled, so the circular roll
     wraps only zeros -- true wraparound entries (periodic stencils) get
@@ -1267,7 +873,8 @@ def spai_preconditioner(A, *, pattern="A", ridge=0.0, format="auto",
     :math:`M = \arg\min \|A M - I\|_F` over matrices supported on the
     pattern -- the unstructured-lane preconditioner for NONSYMMETRIC
     operators, where block-Jacobi's symmetric block story is weak and
-    ILU's sequential triangular solves do not map to the TPU at all.
+    ILU's sequential triangular solves map poorly to a data-parallel
+    device.
 
     The minimization decouples into one small least-squares problem per
     column: with support :math:`J_j`, the normal equations are
@@ -1291,7 +898,7 @@ def spai_preconditioner(A, *, pattern="A", ridge=0.0, format="auto",
 
     Reference baseline: krypy ships no preconditioners at all (they
     enter as ``Ml``/``Mr`` callables, krypy/linsys.py:61-74); SPAI is
-    TPU-native surface.
+    accelerator-native surface.
 
     :param pattern: ``"A"`` (support of A -- the classic SPAI(0) level)
       or ``"A2"`` (support of :math:`A + A^2`: denser, better quality,
@@ -1392,9 +999,9 @@ def block_jacobi_preconditioner(A, block_size=32, *, shift=0.0):
     The strong members of the gallery (multigrid, DST, SSOR) assume the
     2-D stencil family; off the grid, point Jacobi is often all that is
     left.  Block-Jacobi captures the LOCAL coupling a graph-ordered
-    operator concentrates near its diagonal, at a TPU-native cost: the
+    operator concentrates near its diagonal, at an accelerator-native cost: the
     application is ONE batched ``(nb, bs, bs) x (nb, bs)`` matmul
-    (``einsum('bij,bj->bi')``) -- pure MXU work, zero collectives on a
+    (``einsum('bij,bj->bi')``) -- dense GEMM work, zero collectives on a
     mesh (blocks are local to the N-axis shards whenever the local
     shard size divides ``block_size``), and memory ``N * bs`` floats
     for the factored blocks.

@@ -8,8 +8,9 @@ protocol.  Here, distribution is first-class and follows the GSPMD model:
   ``(m+1, N)`` are sharded over a 1-D device mesh along N;
 * the small dense state (Hessenberg, Givens, projected rhs) is replicated;
 * no explicit collectives are written: inner products are partial
-  contractions + an XLA-inserted ``psum`` over ICI, and stencil operators
-  get halo exchanges automatically;
+  contractions + an XLA-inserted ``psum``; the 2-D stencil operators
+  pin a grid-row split (``ops._to_grid``), so GSPMD exchanges halo rows
+  for any N, odd N included;
 * multi-host runs reuse the same program (jax.distributed + GSPMD).
 
 Typical usage::
@@ -22,7 +23,7 @@ Typical usage::
 """
 
 import os
-from functools import lru_cache, partial
+from functools import partial
 
 import numpy as np
 import jax
@@ -108,13 +109,12 @@ def init_distributed(
 
     Wraps :func:`jax.distributed.initialize`: after it returns,
     ``jax.devices()`` spans every host and the same jitted solver program
-    runs unchanged on a global mesh -- GSPMD inserts ICI collectives
-    within a host/pod slice and DCN collectives across slices.  Must be
+    runs unchanged on a global mesh -- GSPMD inserts the collectives
+    within and across hosts.  Must be
     called before any jax computation (it has to run before the backend
     initializes).
 
-    On TPU pods all arguments are auto-detected from the environment;
-    pass them explicitly on CPU/GPU clusters (and in the 2-process CPU
+    Pass them explicitly on CPU/GPU clusters (and in the 2-process CPU
     test, tests/test_distributed.py).
 
     :param coordinator_address: ``"host:port"`` of process 0.
@@ -190,31 +190,21 @@ def make_mesh(n_devices=None, axis_name="n", devices=None):
     return Mesh(np.array(devices), (axis_name,))
 
 
-@lru_cache(maxsize=64)
-def _constraint_identity(sharding):
-    """One cached jitted identity per sharding (a fresh lambda per call
-    would recompile on every invocation; jit itself re-specializes per
-    input shape within the cached function)."""
-    return jax.jit(
-        lambda v: jax.lax.with_sharding_constraint(v, sharding)
-    )
-
-
 def shard_vector(x, mesh, axis_name=None):
     """Place a vector (or row-major basis block) with its last axis sharded
     over the mesh.
 
-    N need not divide the mesh size: ``jax.device_put`` rejects uneven
-    explicit shardings, so indivisible sizes route through a jitted
-    ``with_sharding_constraint`` identity, where GSPMD pads the trailing
-    shard internally (the logical shape is unchanged)."""
+    N need not divide the mesh size, but a ``jax.Array`` cannot hold an
+    uneven split: an indivisible vector comes back REPLICATED.  A solve
+    jitted under the mesh still splits it inside the program wherever
+    an operator pins a split (the 2-D stencils do), and returns its
+    solution replicated."""
     axis_name = mesh.axis_names[0] if axis_name is None else axis_name
     x = jnp.asarray(x)
     spec = P(*([None] * (x.ndim - 1) + [axis_name]))
     sharding = NamedSharding(mesh, spec)
     if x.shape[-1] % mesh.devices.size != 0:
-        with mesh:
-            return _constraint_identity(sharding)(x)
+        return jax.device_put(x, NamedSharding(mesh, P()))
     return jax.device_put(x, sharding)
 
 

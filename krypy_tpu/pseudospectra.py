@@ -11,7 +11,7 @@ functionality natively:
 * :class:`NonnormalMeshgrid` / :class:`NonnormalAuto` -- for non-normal
   matrices, :math:`\\sigma_{\\min}(A - zI)` is evaluated on a complex grid
   as one *batched* device SVD (vmap over grid points -- dense linalg that
-  maps well onto the MXU), and level sets are extracted with contourpy.
+  maps well onto the matrix units), and level sets are extracted with contourpy.
 
 The objects expose ``contour_paths(epsilon)`` returning a :class:`Paths`
 with ``vertices()`` (complex boundary points) and ``length()`` (total

@@ -8,7 +8,7 @@ Structure: the factory string shortcuts live in a module-level registry of
 builders (:data:`FACTORY_SHORTCUTS`) rather than an if/elif chain, and the
 two phases of a solve (subspace selection, deflated solve) are separate
 methods so subclasses and profiling hooks can target them individually.
-For the compile-cached TPU production lane see
+For the compile-cached production lane see
 :class:`krypy_tpu.functional.deflation.RecyclingGmres`.
 """
 

@@ -148,3 +148,35 @@ def loop_body_allreduces(jitted, *args, mesh, include_branches=False):
         )
         best = max(best, n)
     return best
+
+
+def iteration_allreduces(jitted, *args, mesh):
+    """Sync points of one iteration whose orthogonalization runs in a
+    ``lax.switch`` branch (GMRES's prefix buckets): per while-loop body,
+    its own all-reduces plus those of its largest directly called branch
+    computation; the max over loop bodies."""
+    import re as _re
+
+    with mesh:
+        txt = jitted.lower(*args).compile().as_text()
+    comps = {}
+    for comp in _re.split(r"\n\n", txt):
+        m = _re.match(r"%([^\s(]+)", comp)
+        if m:
+            comps[m.group(1)] = comp
+
+    def count(name):
+        return len(_re.findall(
+            r"= \S.* all-reduce\(|all-reduce-start", comps.get(name, "")
+        ))
+
+    best = 0
+    for body in set(_re.findall(r"body=%([^,)\s]+)", txt)):
+        comp = comps.get(body, "")
+        branches = [
+            name
+            for grp in _re.findall(r"branch_computations=\{([^}]*)\}", comp)
+            for name in _re.findall(r"%([^,)\s]+)", grp)
+        ]
+        best = max(best, count(body) + max(map(count, branches), default=0))
+    return best

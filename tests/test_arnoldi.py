@@ -2,7 +2,7 @@
 Drkošová, Greenbaum, Rozložník & Strakoš, "Numerical Stability of GMRES"
 (BIT, 1995) -- oracle ported from reference test/test_utils.py:440-542.
 
-Covers all orthogonalization schemes including the TPU-batched classical
+Covers all orthogonalization schemes including the batched classical
 Gram-Schmidt variants ('cgs', 'cgs2') that the jitted solver cores use.
 """
 

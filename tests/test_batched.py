@@ -6,9 +6,9 @@ solve -- makes every core a valid vmap target: thousands of independent
 small systems become ONE device program (the while_loop runs until the
 slowest batch member finishes; finished members are masked).  This is a
 capability the reference cannot express at all (krypy solvers are
-stateful Python objects, krypy/linsys.py:330-520); on TPU it is how
+stateful Python objects, krypy/linsys.py:330-520); on the device it is how
 small-system workloads (per-cell chemistry, per-sample calibration,
-parameter sweeps) reach the MXU.
+parameter sweeps) reach the matrix-unit.
 
 Sharding the BATCH axis over a mesh makes the program embarrassingly
 parallel: the compiled loop body contains ZERO collectives (pinned

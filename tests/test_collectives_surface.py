@@ -4,7 +4,7 @@ tests/test_collectives.py pins the latency model of the round-2 cores
 (gmres/cg/ca_*/lsqr/chebyshev/poly-precond).  This file extends the
 same compiled-HLO contract to everything added since: the sketched,
 IDR(s), QMR, block, eigensolver and matrix-function lanes.  On a mesh
-every all-reduce in the steady-state loop body is an ICI/DCN round
+every all-reduce in the steady-state loop body is an interconnect round
 trip, so the pinned number IS each solver's per-iteration sync cost --
 a structural fact of the emitted HLO, not a prose claim.  The counts
 are recorded in docs/DESIGN.md section 8's sync-point table.

@@ -42,7 +42,7 @@ def test_golden_functional(fn, golden):
 
 
 @pytest.mark.parametrize(
-    "ortho", ["cgs", "cgs2", "mgs", "dmgs", "bmgs2", "cgs2_pallas",
+    "ortho", ["cgs", "cgs2", "mgs", "dmgs", "bmgs2", "bmgs",
               "cgs2_1r"]
 )
 def test_gmres_ortho_modes(ortho):
@@ -298,8 +298,8 @@ def test_gmres_bmgs_preconditioned_dual_basis():
 
 
 def test_gmres_ortho_auto():
-    """ortho='auto' resolves to a working scheme everywhere: off-TPU it
-    must be exactly the cgs2 path (identical iterates), and it must
+    """ortho='auto' resolves to a working scheme everywhere: on the CPU
+    it must be exactly the cgs2 path (identical iterates), and it must
     accept custom ip / M / f64 (falling back rather than raising)."""
     A, b = _readme_system()
     ref = F.gmres(jnp.asarray(A), jnp.asarray(b), tol=1e-10, maxiter=60)
@@ -308,7 +308,7 @@ def test_gmres_ortho_auto():
     assert int(res.niter) == int(ref.niter)
     assert numpy.allclose(
         numpy.asarray(res.x), numpy.asarray(ref.x), rtol=0, atol=0
-    ), "auto must be bit-identical to cgs2 off-TPU"
+    ), "auto must be bit-identical to cgs2 on the CPU"
     # eligibility fallbacks must not raise
     r2 = F.gmres(jnp.asarray(A), jnp.asarray(b), tol=1e-8, ortho="auto",
                  ip=lambda x, y: jnp.vdot(x, y))
@@ -319,8 +319,9 @@ def test_gmres_pallas_rejects_custom_ip():
     A, b = _readme_system()
     with pytest.raises(ValueError):
         F.gmres(
-            jnp.asarray(A), jnp.asarray(b),
-            ip=lambda x, y: jnp.vdot(x, y), ortho="cgs2_pallas",
+            jnp.asarray(A, jnp.float32), jnp.asarray(b, jnp.float32),
+            ip=lambda x, y: jnp.vdot(x, y), ortho="cgs2_fused",
+            interpret=True,
         )
 
 
@@ -502,8 +503,10 @@ def test_sharded_cg_matches_single_device():
 
 def test_sharded_uneven_n_matches_single_device():
     """N NOT divisible by the mesh size (VERDICT r1: 'no test that an
-    unevenly divisible N works'): GSPMD pads the trailing shard; the
-    numerics must match the single-device solve exactly."""
+    unevenly divisible N works'): the vectors enter and leave the
+    program replicated (a jax.Array cannot hold an uneven split), the
+    stencil splits the grid inside it; the numerics must match the
+    single-device solve."""
     n_dev = len(jax.devices())
     assert n_dev >= 8
     # nx*nx = 289 = 8*36 + 1: maximally uneven trailing shard
@@ -582,7 +585,7 @@ def test_restarted_gmres_functional():
 @pytest.mark.parametrize("solver_name", ["cg", "minres", "gmres"])
 def test_complex_hpd(solver_name):
     """Complex Hermitian positive definite systems through the functional
-    cores (the reference's complex coverage, TPU-lane side)."""
+    cores (the reference's complex coverage, functional-lane side)."""
     A = helpers.matrix_hpd()
     b = A @ numpy.ones(10)
     fn = getattr(F, solver_name)

@@ -1,4 +1,4 @@
-"""Tests for the jitted Arnoldi relation builder (TPU-lane counterpart of
+"""Tests for the jitted Arnoldi relation builder (functional-lane counterpart of
 utils.arnoldi; relation/orthogonality oracles as in test_arnoldi.py)."""
 
 import numpy

@@ -1,4 +1,4 @@
-"""Tests for the jitted deflated GMRES and the TPU-native recycling loop."""
+"""Tests for the jitted deflated GMRES and the accelerator-native recycling loop."""
 
 import numpy
 import pytest

@@ -1,267 +1,125 @@
-"""Pallas kernel correctness tests (interpreter mode on CPU; the same
-kernels compile natively on TPU)."""
+"""Fused CGS2 kernel tests (Pallas interpreter on CPU; the kernel
+compiles for the GPU through the Triton route, where chip_smoke.py
+phase 5 checks it)."""
 
 import numpy
 import pytest
+import jax
 import jax.numpy as jnp
 
-from krypy_tpu import ops
-from krypy_tpu.kernels.orthogonalize import cgs_project
-from krypy_tpu.kernels.stencil import laplacian_2d_kernel
+from krypy_tpu.kernels import orthogonalize as ko
+from krypy_tpu.kernels.orthogonalize import (
+    apply_project,
+    cgs2_fused,
+    cgs2_fused_sharded,
+)
 
 
-@pytest.mark.parametrize("m, N", [(8, 256), (16, 1024)])
-@pytest.mark.parametrize("k", [0, 3, 7])
-def test_cgs_project(m, N, k):
-    rng = numpy.random.RandomState(0)
-    V = rng.randn(m, N)
-    # orthonormalize active rows so the projection is exact
-    V[: k + 1] = numpy.linalg.qr(V[: k + 1].T)[0].T
-    w = rng.randn(N)
-    mask = (numpy.arange(m) <= k).astype(float)
-
-    w_orth, coeffs = cgs_project(
-        jnp.asarray(V), jnp.asarray(w), jnp.asarray(mask), interpret=True
-    )
-    w_orth = numpy.asarray(w_orth)
-    coeffs = numpy.asarray(coeffs)
-
-    # coefficients match the masked inner products
-    expected_c = (V.conj() @ w) * mask
-    numpy.testing.assert_allclose(coeffs, expected_c, atol=1e-10)
-    # update matches w - V^T c
-    numpy.testing.assert_allclose(
-        w_orth, w - expected_c @ V, atol=1e-10
-    )
-    # active rows are projected out
-    numpy.testing.assert_allclose(
-        V[: k + 1] @ w_orth, numpy.zeros(k + 1), atol=1e-8
-    )
+def _mask(kind, m, rows):
+    if kind == "all":
+        return numpy.ones(m)
+    if kind == "prefix":
+        # the GMRES pattern: active rows 0..k, k < rows
+        return (numpy.arange(m) <= max(rows // 2, 0)).astype(float)
+    return (numpy.arange(m) % 2 == 0).astype(float)
 
 
-def test_cgs_project_dual_basis():
-    rng = numpy.random.RandomState(1)
-    m, N = 8, 512
-    V = rng.randn(m, N)
-    B = rng.randn(m, N)
-    w = rng.randn(N)
-    mask = numpy.ones(m)
-    w_orth, coeffs = cgs_project(
-        jnp.asarray(V), jnp.asarray(w), jnp.asarray(mask),
-        basis=jnp.asarray(B), interpret=True,
-    )
-    expected_c = V @ w
-    numpy.testing.assert_allclose(
-        numpy.asarray(w_orth), w - expected_c @ B, atol=1e-10
-    )
+def _cgs2_f64(V, w, mask, rows):
+    Vr, mk = V[:rows], mask[:rows]
+    c1 = (Vr @ w) * mk
+    w1 = w - c1 @ Vr
+    c2 = (Vr @ w1) * mk
+    return w1 - c2 @ Vr, c1 + c2
 
 
-@pytest.mark.parametrize("nx, ny, block_rows", [
-    (16, 16, 8), (32, 16, 8), (8, 8, 8), (24, 16, 8),
-])
-def test_laplacian_kernel(nx, ny, block_rows):
-    ref_op = ops.poisson_2d(nx, ny)
-    rng = numpy.random.RandomState(2)
-    x = jnp.asarray(rng.randn(nx * ny))
-    out = laplacian_2d_kernel(
-        x, nx=nx, ny=ny, block_rows=block_rows, interpret=True
-    )
-    numpy.testing.assert_allclose(
-        numpy.asarray(out), numpy.asarray(ref_op(x)), rtol=1e-12
-    )
+@pytest.mark.parametrize("mask_kind", ["all", "prefix", "alternate"])
+@pytest.mark.parametrize("basis_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1000, 1023 * 1023, 4095 * 7])
+@pytest.mark.parametrize("rows", [1, 7, 26, 41])
+def test_cgs2_fused_matches_numpy(rows, N, basis_dtype, mask_kind):
+    """The kernel composition against a float64 NumPy CGS2 on the same
+    (rounded) basis: masked tails, non-power-of-two N and rows, and a
+    bfloat16 basis.  Tolerance: float32 accumulation over N terms."""
+    rng = numpy.random.default_rng(rows * 7 + N % 97)
+    m = rows + 3
+    V = jnp.asarray(rng.standard_normal((m, N)) / numpy.sqrt(N),
+                    basis_dtype)
+    w = jnp.asarray(rng.standard_normal(N), jnp.float32)
+    mask = _mask(mask_kind, m, rows)
+    # few programs at the 1M size keep the interpreter quick; the other
+    # sizes take the default tile
+    block_n = 65536 if N > 100000 else None
+    w2, c = cgs2_fused(V, w, jnp.asarray(mask, jnp.float32), rows=rows,
+                       block_n=block_n, interpret=True)
+    Vd = numpy.asarray(V.astype(jnp.float32), numpy.float64)
+    w_ref, c_ref = _cgs2_f64(Vd, numpy.asarray(w, numpy.float64), mask,
+                             rows)
+    assert w2.dtype == jnp.float32 and w2.shape == (N,)
+    assert c.shape == (m,)
+    numpy.testing.assert_allclose(numpy.asarray(w2), w_ref,
+                                  atol=2e-5 * numpy.abs(w_ref).max())
+    numpy.testing.assert_allclose(numpy.asarray(c)[:rows], c_ref,
+                                  atol=2e-5 * numpy.linalg.norm(w_ref))
+    assert numpy.all(numpy.asarray(c)[rows:] == 0.0)
 
 
-@pytest.mark.parametrize("nx, ny, T", [
-    (16, 16, 8), (32, 16, 8), (24, 16, 8), (8, 8, 8),
-])
-def test_laplacian_pipelined(nx, ny, T):
-    from krypy_tpu.kernels.stencil import laplacian_2d_pipelined
-
-    ref_op = ops.poisson_2d(nx, ny)
-    rng = numpy.random.RandomState(3)
-    x = jnp.asarray(rng.randn(nx * ny))
-    out = laplacian_2d_pipelined(
-        x, nx=nx, ny=ny, block_rows=T, interpret=True
-    )
-    numpy.testing.assert_allclose(
-        numpy.asarray(out), numpy.asarray(ref_op(x)), rtol=1e-12
-    )
+@pytest.mark.parametrize("rows, expect", [(1, 2048), (8, 1024), (26, 256),
+                                          (41, 128), (300, 128)])
+def test_tile_width(rows, expect):
+    """Tiles hold TILE_ELEMS elements of V, power-of-two wide, within
+    [128, 2048] columns; an explicit block_n rounds up to a power of 2."""
+    rp = ko._rows_p2(rows)
+    assert rp >= rows and rp & (rp - 1) == 0
+    assert ko._tile_cols(rp, None) == expect
+    assert ko._tile_cols(rp, 1000) == 1024
 
 
-def test_poisson_2d_impl_selector():
-    op = ops.poisson_2d(16, impl="pallas")
-    ref = ops.poisson_2d(16)
-    x = jnp.asarray(numpy.random.RandomState(4).randn(256))
-    # interpret-mode execution of the pallas path on CPU
-    from krypy_tpu.kernels import stencil
+def test_apply_project_partials_sum_across_tiles():
+    """Many programs, each with its own partial coefficients: the sum
+    over the (n_tiles, rows) buffer equals the one-tile result."""
+    rng = numpy.random.default_rng(5)
+    m, N, rows = 9, 5000, 9
+    V = jnp.asarray(rng.standard_normal((m, N)), jnp.float32)
+    w = jnp.asarray(rng.standard_normal(N), jnp.float32)
+    c = jnp.asarray(rng.standard_normal(m), jnp.float32)
+    mask = jnp.ones(m, jnp.float32)
+    w1a, c2a = apply_project(V, w, c, mask, rows=rows, block_n=128,
+                             interpret=True)
+    w1b, c2b = apply_project(V, w, c, mask, rows=rows, block_n=8192,
+                             interpret=True)
+    numpy.testing.assert_allclose(numpy.asarray(w1a), numpy.asarray(w1b),
+                                  rtol=1e-6, atol=1e-5)
+    numpy.testing.assert_allclose(numpy.asarray(c2a), numpy.asarray(c2b),
+                                  rtol=1e-4, atol=1e-3)
 
-    out = stencil.laplacian_2d_pipelined(x, nx=16, ny=16, interpret=True)
-    numpy.testing.assert_allclose(
-        numpy.asarray(out), numpy.asarray(ref(x)), rtol=1e-12
-    )
+
+@pytest.mark.parametrize("what", ["f64_basis", "f64_vector", "no_interpret"])
+def test_cgs2_fused_rejects_ineligible(what):
+    """No silent fallback: a float64 basis or vector, or the compiled
+    kernel on a backend other than the GPU, raises."""
+    V = jnp.zeros((4, 256), jnp.float32)
+    w = jnp.zeros(256, jnp.float32)
+    kw = {"interpret": True}
+    if what == "f64_basis":
+        V = V.astype(jnp.float64)
+    elif what == "f64_vector":
+        w = w.astype(jnp.float64)
+    else:
+        kw = {}
     with pytest.raises(ValueError):
-        ops.poisson_2d(16, impl="bogus")
-
-
-@pytest.mark.parametrize("nx, ny", [(13, 13), (31, 17), (16, 16), (9, 24)])
-def test_stencil5_odd_sizes_convdiff_shifted(nx, ny):
-    """The generalized 5-point kernel pads non-multiple-of-8 row counts
-    (e.g. the 2^k-1 multigrid grids) and must match the jnp operators for
-    every gallery stencil."""
-    rng = numpy.random.RandomState(5)
-    x = jnp.asarray(rng.randn(nx * ny))
-    pairs = [
-        (ops.poisson_2d(nx, ny), ops.poisson_2d(nx, ny, impl="pallas")),
-        (
-            ops.convection_diffusion_2d(nx, ny),
-            ops.convection_diffusion_2d(nx, ny, impl="pallas"),
-        ),
-        (
-            ops.shifted_laplacian_2d(nx, ny, sigma=7.5),
-            ops.shifted_laplacian_2d(nx, ny, sigma=7.5, impl="pallas"),
-        ),
-    ]
-    for ref_op, pallas_op in pairs:
-        numpy.testing.assert_allclose(
-            numpy.asarray(pallas_op(x)),
-            numpy.asarray(ref_op(x)),
-            rtol=1e-11, atol=1e-11,
-        )
-
-
-def test_multigrid_pallas_matches_jnp():
-    mg_j = ops.multigrid_poisson_preconditioner(31, coarsest=7)
-    mg_p = ops.multigrid_poisson_preconditioner(31, coarsest=7, impl="pallas")
-    x = jnp.asarray(numpy.random.RandomState(6).randn(31 * 31))
-    numpy.testing.assert_allclose(
-        numpy.asarray(mg_p(x)), numpy.asarray(mg_j(x)), rtol=1e-10
-    )
-
-
-@pytest.mark.parametrize("nx, ny", [(32, 16), (64, 24), (16, 16)])
-def test_stencil5_sharded_matches_jnp(nx, ny):
-    """The per-shard Pallas kernel + ppermute halo exchange must agree
-    with the single-device jnp operators on the 8-device mesh for every
-    gallery stencil (interpret mode on CPU)."""
-    from krypy_tpu import parallel
-
-    mesh = parallel.make_mesh(8)
-    rng = numpy.random.RandomState(7)
-    x = parallel.shard_vector(jnp.asarray(rng.randn(nx * ny)), mesh)
-    pairs = [
-        (ops.poisson_2d(nx, ny),
-         ops.poisson_2d(nx, ny, impl="pallas", mesh=mesh)),
-        (ops.convection_diffusion_2d(nx, ny),
-         ops.convection_diffusion_2d(nx, ny, impl="pallas", mesh=mesh)),
-        (ops.shifted_laplacian_2d(nx, ny, sigma=7.5),
-         ops.shifted_laplacian_2d(nx, ny, sigma=7.5, impl="pallas",
-                                  mesh=mesh)),
-    ]
-    for ref_op, shard_op in pairs:
-        out = shard_op(x)
-        # output keeps the input's sharding (per-shard compute, no gather)
-        assert out.sharding.spec == x.sharding.spec
-        numpy.testing.assert_allclose(
-            numpy.asarray(out), numpy.asarray(ref_op(x)),
-            rtol=1e-11, atol=1e-11,
-        )
-
-
-def test_stencil5_sharded_rejects_indivisible_nx():
-    from krypy_tpu import parallel
-
-    mesh = parallel.make_mesh(8)
-    op = ops.poisson_2d(12, 16, impl="pallas", mesh=mesh)
-    with pytest.raises(ValueError, match="divisible"):
-        op(jnp.zeros(12 * 16))
-
-
-def test_stencil5_sharded_solve():
-    """End-to-end: CG through the sharded Pallas operator converges to
-    the same solution as the jnp path."""
-    from krypy_tpu import functional as F, parallel
-
-    mesh = parallel.make_mesh(8)
-    nx = 32
-    A = ops.poisson_2d(nx, impl="pallas", mesh=mesh)
-    rng = numpy.random.RandomState(8)
-    b = parallel.shard_vector(jnp.asarray(rng.randn(nx * nx)), mesh)
-    with mesh:
-        res = F.cg(A, b, tol=1e-10, maxiter=200)
-    x_ref = F.cg(ops.poisson_2d(nx), jnp.asarray(b), tol=1e-10,
-                 maxiter=200).x
-    numpy.testing.assert_allclose(
-        numpy.asarray(res.x), numpy.asarray(x_ref), rtol=1e-7, atol=1e-9
-    )
-
-
-@pytest.mark.parametrize("nx, ny", [(200, 260), (9, 140), (100, 136)])
-def test_stencil5_block_height_stays_8_aligned(nx, ny):
-    """Regression: the VMEM-cap heuristic must never yield a block height
-    that is not a multiple of 8 -- the halo views are addressed in 8-row
-    units and any other height silently corrupts block-boundary rows."""
-    rng = numpy.random.RandomState(11)
-    x = jnp.asarray(rng.randn(nx * ny).astype(numpy.float32))
-    ref = ops.poisson_2d(nx, ny)(x)
-    pal = ops.poisson_2d(nx, ny, impl="pallas")(x)
-    rel = float(jnp.max(jnp.abs(pal - ref)) / jnp.max(jnp.abs(ref)))
-    assert rel < 1e-5
-
-
-@pytest.mark.parametrize("m, N, rows, k", [(9, 256, 8, 5), (17, 1024, 16, 11)])
-def test_prefix_sweep_kernels(m, N, rows, k):
-    """project_prefix / apply_project / update_prefix compose to exact
-    CGS2 (vs the plain jnp formulation, f64 interpret mode)."""
-    from krypy_tpu.kernels.orthogonalize import (
-        apply_project,
-        project_prefix,
-        update_prefix,
-    )
-
-    rng = numpy.random.RandomState(2)
-    V = rng.randn(m, N)
-    w = rng.randn(N)
-    mask = (numpy.arange(m) <= k).astype(float)
-    mk = mask[:rows]
-
-    c1_ref = (V[:rows] @ w) * mk
-    w1_ref = w - c1_ref @ V[:rows]
-    c2_ref = (V[:rows] @ w1_ref) * mk
-    w2_ref = w1_ref - c2_ref @ V[:rows]
-
-    c1 = project_prefix(
-        jnp.asarray(V), jnp.asarray(w), jnp.asarray(mask), rows=rows,
-        interpret=True,
-    )
-    numpy.testing.assert_allclose(numpy.asarray(c1[:rows]), c1_ref,
-                                  atol=1e-10)
-    assert numpy.all(numpy.asarray(c1[rows:]) == 0.0)
-
-    w1, c2 = apply_project(
-        jnp.asarray(V), jnp.asarray(w), c1, jnp.asarray(mask), rows=rows,
-        interpret=True,
-    )
-    numpy.testing.assert_allclose(numpy.asarray(w1), w1_ref, atol=1e-10)
-    numpy.testing.assert_allclose(numpy.asarray(c2[:rows]), c2_ref,
-                                  atol=1e-10)
-
-    w2 = update_prefix(jnp.asarray(V), w1, c2, rows=rows, interpret=True)
-    numpy.testing.assert_allclose(numpy.asarray(w2), w2_ref, atol=1e-10)
+        cgs2_fused(V, w, jnp.ones(4, jnp.float32), **kw)
 
 
 def test_cgs2_fused_sharded_matches_single_device():
     """The shard_map composition (3 local sweeps + 2 psums) reproduces
     the single-device fused kernel on an 8-device mesh."""
-    import jax
-
     from krypy_tpu import parallel
-    from krypy_tpu.kernels.orthogonalize import cgs2_fused, cgs2_fused_sharded
 
     rng = numpy.random.RandomState(3)
     m, N, rows = 9, 1024, 8
-    V = jnp.asarray(rng.randn(m, N))
-    w = jnp.asarray(rng.randn(N))
-    mask = (jnp.arange(m) < 6).astype(V.dtype)
+    V = jnp.asarray(rng.randn(m, N) / numpy.sqrt(N), jnp.float32)
+    w = jnp.asarray(rng.randn(N), jnp.float32)
+    mask = (jnp.arange(m) < 6).astype(jnp.float32)
 
     w_ref, c_ref = cgs2_fused(V, w, mask, rows=rows, interpret=True)
 
@@ -279,19 +137,22 @@ def test_cgs2_fused_sharded_matches_single_device():
                 V_, w_, m_, mesh=mesh, rows=rows, interpret=True
             )
         )(Vs, ws, mask)
+    # float32: the shards sum their partials in another order
+    scale = float(jnp.max(jnp.abs(w_ref)))
     numpy.testing.assert_allclose(
-        numpy.asarray(w_sh), numpy.asarray(w_ref), atol=1e-10
+        numpy.asarray(w_sh), numpy.asarray(w_ref), atol=1e-6 * scale
     )
     numpy.testing.assert_allclose(
-        numpy.asarray(c_sh), numpy.asarray(c_ref), atol=1e-10
+        numpy.asarray(c_sh), numpy.asarray(c_ref), atol=1e-6 * scale
     )
 
 
 def test_cgs2_fused_sharded_rejects_indivisible_n():
     from krypy_tpu import parallel
-    from krypy_tpu.kernels.orthogonalize import cgs2_fused_sharded
 
     mesh = parallel.make_mesh(8)
-    V = jnp.zeros((4, 1023))
+    V = jnp.zeros((4, 1023), jnp.float32)
     with pytest.raises(ValueError, match="divide over the mesh"):
-        cgs2_fused_sharded(V, jnp.zeros(1023), jnp.ones(4), mesh=mesh)
+        cgs2_fused_sharded(V, jnp.zeros(1023, jnp.float32),
+                           jnp.ones(4, jnp.float32), mesh=mesh,
+                           interpret=True)

@@ -1,7 +1,7 @@
 """GMRES-polynomial preconditioner (harmonic-Ritz roots, product form).
 
 The reference has no polynomial preconditioning (krypy takes a
-user-supplied ``M`` only, krypy/linsys.py:61-78); this is TPU-native
+user-supplied ``M`` only, krypy/linsys.py:61-78); this is accelerator-native
 surface: one application is ``degree`` matvecs and ZERO reductions.
 """
 

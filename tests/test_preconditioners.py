@@ -303,7 +303,7 @@ def test_dia_from_scipy_exact_and_sharded():
 
 def test_dia_sharded_lowers_to_neighbor_permutes():
     """HLO pin for the DIA mesh claim: the rolls of the sharded matvec
-    lower to collective-permutes (neighbor traffic on ICI), never to
+    lower to collective-permutes (neighbor traffic on the interconnect), never to
     all-gathers or all-reduces."""
     import re
 

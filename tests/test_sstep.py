@@ -429,7 +429,7 @@ def test_ca_gmres_rank_deficient_panel_stays_finite():
     """Eigenvector rhs: the first Newton direction (A - theta0) b is
     ~0, so the candidate panel's Gram matrix is numerically singular.
     Whether plain Cholesky survives that is a rounding-order lottery
-    (the TPU's reduction order NaN'd where the CPU's happened not to);
+    (one reduction order NaN'd where the CPU's happened not to);
     the shifted CholQR2 guard must keep the solve finite and
     progressing on every backend."""
     n = 256
